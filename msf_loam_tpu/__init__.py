@@ -1,6 +1,6 @@
-"""msf_loam_tpu — TPU-native LiDAR-inertial SLAM engine.
+"""msf_loam_tpu — LiDAR-inertial SLAM engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 kekeliu-whu/MSF_LOAM (LOAM + IMU preintegration + GPS pose-graph fusion).
 See SURVEY.md for the reference layer map this build targets.
 """

@@ -232,7 +232,7 @@ def main(argv=None) -> int:
     profiler_ctx = None
     if args.profile_dir:
         # device-level tracing (TicToc/LOG_STEP_TIME analog at kernel depth;
-        # SURVEY.md §5 tracing plank) — view with tensorboard/xprof
+        # SURVEY.md §5 tracing plank) — view with tensorboard or perfetto
         import jax
         profiler_ctx = jax.profiler.trace(args.profile_dir)
         profiler_ctx.__enter__()

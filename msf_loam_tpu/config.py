@@ -1,4 +1,4 @@
-"""Configuration system for the TPU-native MSF-LOAM engine.
+"""Configuration system for the MSF-LOAM engine.
 
 Surfaces every tunable that the reference hard-codes (see SURVEY.md §2) plus
 the reference's own three config layers (gflags / proto-JSON `MsfLoamConfig`
@@ -43,13 +43,9 @@ class FeatureConfig:
     # smooth-population mean curvature (noise floor): sectors that see only
     # smooth ground pick no "edges" from range noise
     corner_gate_factor: float = 10.0
-    # --- static-shape budgets for the TPU arrays ---
+    # --- static-shape budgets for the device arrays ---
     max_points_per_ring: int = 2048    # ring buffer width (VLP-16 ~1800/rev @10Hz)
     max_less_flat: int = 8192          # cap on downsampled less-flat points
-    # fused Pallas pick-rounds kernel (ops/pick_rounds.py): all 9 greedy
-    # pick rounds in one VMEM-resident pass. "auto" = on TPU only (the
-    # XLA rounds stay the reference implementation and the CPU path)
-    fused_picks: str = "auto"          # auto | on | off
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +54,6 @@ class OdometryConfig:
 
     dist_sq_threshold: float = 25.0    # kDistanceSqThreshold (odometry_scan_matcher.cc:16)
     nearby_scan: float = 2.5           # kNearByScan ring window (odometry_scan_matcher.cc:17)
-    # fused Pallas correspondence reductions (ops/odo_corr.py): the (N, M)
-    # distance matrix never materializes in HBM. "auto" = on TPU only;
-    # the XLA reductions stay the reference implementation / CPU path
-    fused_corr: str = "auto"           # auto | on | off
     outer_rounds: int = 2              # kOptimalNum (odometry_scan_matcher.cc:18)
     gn_iterations: int = 6             # ceres max_num_iterations (odometry_scan_matcher.cc:271)
     huber_delta: float = 0.1           # HuberLoss(0.1) (odometry_scan_matcher.cc:67)
@@ -126,39 +118,10 @@ class MappingConfig:
     plane_fallback: bool = True
     knn_wide: int = 16
     # gather the 8-cell candidate sets once per frame and re-run only the
-    # distance/top-k selection each re-association round (TPU gathers are
-    # row-latency-bound; see voxel_map.gather_candidates). Exactness bound:
+    # distance/top-k selection each re-association round (the gather is
+    # the costly half; see voxel_map.gather_candidates). Exactness bound:
     # inter-round pose updates must stay well under map_cell_size/2.
     reuse_candidates: bool = True
-    # fused Pallas selection+fit kernel (ops.select_fit): one HBM read of
-    # the gathered candidates per re-association round instead of ~5.
-    # "auto" = on when the backend is TPU; "on"/"off" force it.
-    fused_select: str = "auto"
-    # two-level octant gather (voxel_map.gather_candidates_planar_2l):
-    # dedupe the Q*8 octant slot ids and fetch each unique slab once, then
-    # re-expand from the small compact buffer. Measured and REJECTED as an
-    # XLA-level program in r4 (scripts/bench_gather_2l.py: 1.13 vs 0.69 ms
-    # — ANY 32k-element dedupe pass costs more than the gather it
-    # replaces; see docs/RESULTS.md). Kept off for a future in-kernel
-    # expansion; "on" forces it, "auto" currently means off.
-    gather_two_level: str = "off"
-    # compact-buffer capacity for the two-level gather (unique slots per
-    # frame + 1 sentinel row). Overflow drops candidates (graceful); size
-    # above the per-frame unique-cell count (~640 at bench scale).
-    gather_u_max: int = 4096
-    # grouped two-level octant gather (r5, the design that finally WON):
-    # the mapping downsample sorts queries by (octant base cell, leaf
-    # voxel), so the slab gather runs once per base-cell GROUP and
-    # re-expands from the compact buffer (voxel_map.
-    # gather_candidates_planar_grouped — 0.10 + 0.03 ms vs 0.41 ms net at
-    # Q=4096, scripts/bench_gather_r5.py). "auto" = on whenever the fused
-    # Pallas selection path is on (TPU); "on"/"off" force it.
-    gather_grouped: str = "auto"
-    # static group budget per feature type (+1 overflow sentinel row).
-    # Frames touching more base cells drop candidates for the overflow
-    # groups (graceful, like slab overflow). Street/bench scale measures
-    # ~300-700 unique base cells per 4096 queries.
-    gather_groups: int = 1024
     line_eig_ratio: float = 3.0        # λ2 > 3 λ1 line test (mapping_scan_matcher.cc:147)
     plane_fit_tol: float = 0.2         # planarity residual bound (mapping_scan_matcher.cc:216)
     outer_rounds: int = 2              # kOptimalNum (mapping_scan_matcher.cc:15)
@@ -167,7 +130,7 @@ class MappingConfig:
     min_map_corner: int = 10           # skip-if-small gates (laser_mapping.cc:284)
     min_map_surf: int = 50             # (laser_mapping.cc:285)
     query_radius: float = 60.0         # kDist surround horizon (hybrid_grid.cc:532)
-    # --- TPU hash-grid map parameters (replaces Cartographer HybridGrid) ---
+    # --- hash-grid map parameters (replaces Cartographer HybridGrid) ---
     map_cell_size: float = 2.0         # spatial-hash cell edge (reference uses 3.0 m clouds)
     map_table_size: int = 1 << 15      # hash table slots per feature map
     map_cell_capacity: int = 32        # point slab per cell
@@ -175,7 +138,7 @@ class MappingConfig:
     # Separate (smaller) budget for corner queries: corner clouds are far
     # sparser than surf (measured ~540 valid of a 1920 budget on the bench
     # world), and every padded row still pays the full octant gather +
-    # fused selection/fit. 0 = use max_query_points.
+    # selection/fit. 0 = use max_query_points.
     max_corner_query_points: int = 0
     map_evict_radius: float = 100.0    # release cells beyond this (60 m query
                                        # horizon analog, hybrid_grid.cc:532)
@@ -199,7 +162,7 @@ class ImuConfig:
     gyr_w: float = 0.0012
     update_rate: float = 400.0
     # preintegration lowering: "assoc" = log-depth associative scans
-    # (~3.5 ms/frame faster in the fused LIO frame at 40-sample windows);
+    # (6 sequential levels for a 40-sample window instead of 40 steps);
     # "scan" = the literal per-sample lax.scan (reference-shaped)
     preint_mode: str = "assoc"
     gravity: Tuple[float, float, float] = (0.0, 0.0, 9.81)

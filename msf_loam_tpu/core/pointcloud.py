@@ -1,6 +1,6 @@
 """Fixed-shape point-cloud containers.
 
-TPU-native replacement for the reference's PCL cloud types and the
+Batched replacement for the reference's PCL cloud types and the
 inter-stage ``TimestampedPointCloud`` payload
 (``/root/reference/src/common/timestamped_pointcloud.h:11-48``). Pointer-y
 dynamic clouds become ``(N_max, ...)`` arrays with validity masks so every
@@ -93,9 +93,8 @@ class ScanFeatures(NamedTuple):
 
         The scan-to-scan matcher only reads the less-sharp / less-flat
         clouds of the previous scan; threading the (R*W)-point full cloud
-        through a ``lax.scan`` carry costs a multi-MB copy per frame
-        (xprof: ~4x 0.9 ms async slices at 64-ring scale). Use this for
-        on-device frame loops; keep ``full`` where deskewed artifacts /
+        through a ``lax.scan`` carry costs a multi-MB copy per frame. Use
+        this for on-device frame loops; keep ``full`` where deskewed artifacts /
         loop keyframes are consumed (run_slam, imu.deskew). Slices the
         point axis to zero so leading (batch) axes survive; idempotent."""
         pb = self.full
@@ -116,7 +115,7 @@ class ScanFeatures(NamedTuple):
 class RingImage(NamedTuple):
     """Range-image organized scan: points grouped per ring, azimuth-ordered.
 
-    The TPU-friendly intermediate for feature extraction, replacing the
+    The dense, fixed-shape intermediate for feature extraction, replacing the
     reference's per-ring ``std::vector`` grouping (msf_loam_node.cc:176-195).
     """
 

@@ -1,6 +1,6 @@
 """SE(3) / quaternion algebra on batched JAX arrays.
 
-TPU-native replacement for the reference's ``Rigid3<T>`` type
+Batched replacement for the reference's ``Rigid3<T>`` type
 (``/root/reference/src/common/rigid_transform.h:16-147``) and quaternion
 helpers (``/root/reference/src/slam/imu_fusion/utility.h:5-78``).
 
@@ -62,7 +62,7 @@ def quat_rotate(q: Array, v: Array) -> Array:
 
     Uses the expanded 15-mul form (cheaper than building the 3x3 matrix when
     rotating a single vector; for rotating many points by one quaternion
-    prefer ``quat_to_matrix`` + matmul so the MXU does the work).
+    prefer ``quat_to_matrix`` + one matmul).
     """
     w = q[..., 0:1]
     u = q[..., 1:4]
@@ -91,7 +91,7 @@ def matrix_to_quat(m: Array) -> Array:
     """3x3 rotation matrix -> quaternion [w,x,y,z], batched, branch-free.
 
     Shepperd's method evaluated on all four candidates and selected with
-    ``argmax`` so it traces on TPU without data-dependent control flow.
+    ``argmax`` so it traces without data-dependent control flow.
     """
     m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
@@ -257,7 +257,9 @@ class Pose(NamedTuple):
     def apply(self, points: Array) -> Array:
         """Transform points (..., N, 3) or (..., 3) by this pose."""
         if points.ndim >= 2 and self.q.ndim == 1:
-            # one pose, many points: use the MXU
+            # one pose, many points: one matmul, which must run at f32
+            # precision (core.precision) — at 50 m range reduced-precision
+            # inputs round to centimetres
             R = quat_to_matrix(self.q)
             return points @ R.T + self.t
         return quat_rotate(self.q, points) + self.t

@@ -1,6 +1,6 @@
 """Gravity-direction + per-frame velocity initialization.
 
-TPU redesign of ``Estimator::AddData``'s 50-frame init solve
+Batched redesign of ``Estimator::AddData``'s 50-frame init solve
 (``/root/reference/src/slam/estimator/estimator.cc:56-111``): the
 ``VelocityGravityInitFactor`` residuals (estimator.cc:9-52) are LINEAR in
 (g, v_0..v_{N-1}), so instead of iterating Ceres we assemble one dense

@@ -1,6 +1,6 @@
 """VINS-Mono-style IMU preintegration as a ``lax.scan``.
 
-TPU-native re-implementation of ``IntegrationBase``
+Batched re-implementation of ``IntegrationBase``
 (``/root/reference/src/slam/imu_fusion/integration_base.cc``): midpoint
 integration of (delta_p, delta_q, delta_v) with 15x15 bias-Jacobian and
 covariance propagation (integration_base.cc:53-124), per-sample result
@@ -156,8 +156,7 @@ def preintegrate(dts: Array, accs: Array, gyrs: Array, valid: Array,
     ``cfg.preint_mode`` picks the execution strategy: "assoc" (default)
     lowers the recurrences to log-depth associative scans (see
     ``preintegrate_assoc`` — a 40-sample window costs 6 sequential levels
-    of batched math instead of 40 tiny sequential steps; measured ~3.5 ms
-    of the 9.7 ms fused LIO frame was this scan); "scan" keeps the
+    of batched math instead of 40 tiny sequential steps); "scan" keeps the
     literal per-sample lax.scan (the reference-shaped implementation).
     Both produce the same Preintegration up to fp reassociation
     (test_imu::test_assoc_matches_scan).

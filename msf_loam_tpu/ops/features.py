@@ -1,6 +1,6 @@
-"""Batched LOAM feature extraction on TPU.
+"""Batched LOAM feature extraction.
 
-TPU-native redesign of the reference's scan registration stage
+Batched redesign of the reference's scan registration stage
 (``/root/reference/src/msf_loam_node.cc:160-378``):
 
 * curvature = squared norm of an 11-tap [1,1,1,1,1,-10,1,1,1,1,1] filter per
@@ -24,15 +24,19 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from msf_loam_tpu.config import FeatureConfig
 from msf_loam_tpu.core.pointcloud import PointBatch, RingImage, ScanFeatures
-from msf_loam_tpu.ops.voxel import (voxel_downsample_compact_idx,
-                                    voxel_downsample_masked)
+from msf_loam_tpu.core.precision import f32_matmuls
+from msf_loam_tpu.ops.voxel import voxel_downsample_compact_idx
 
 Array = jax.Array
 
-_BIG = jnp.float32(1e18)
+# a NumPy scalar, not a device array: importing this module must not
+# initialise a JAX backend (a producer process that imports the package
+# would otherwise reserve the accelerator's memory)
+_BIG = np.float32(1e18)
 
 
 def compute_curvature(xyz: Array, mask: Array, cfg: FeatureConfig) -> Tuple[Array, Array]:
@@ -62,10 +66,9 @@ def compute_curvature(xyz: Array, mask: Array, cfg: FeatureConfig) -> Tuple[Arra
 
 
 def _prefix_sum_lanes(x: Array) -> Array:
-    """Exclusive-ish prefix sum along the last axis via log-depth shifted
-    adds. jnp.cumsum lowers to a reduce-window on TPU (~100 us for a
-    (64, 2048) int32 image — xprof r5); 11 shifted adds cost microseconds.
-    Returns the INCLUSIVE prefix sum (same as jnp.cumsum)."""
+    """Inclusive prefix sum along the last axis (same as jnp.cumsum) via
+    log-depth shifted adds: 11 elementwise passes over a (64, 2048) image
+    that fuse with their neighbours."""
     n = x.shape[-1]
     d = 1
     while d < n:
@@ -143,12 +146,9 @@ def corner_gate_array(curv: Array, eligible: Array, sector: Array,
                 / jnp.maximum(jnp.sum(w_sm, axis=2), 1.0))        # (R, S)
     gate_rs = jnp.maximum(cfg.curvature_threshold,
                           cfg.corner_gate_factor * sec_mean)
-    # per-position lookup as a select chain, NOT take_along_axis: a
-    # (R, W)-element gather from the (R, S) table is element-granular and
-    # row-latency-bound (~1.1 ms/frame at 64-ring, the single most
-    # expensive op of the whole frame — xprof r5); S static selects cost
-    # microseconds and are bit-exact (sector -1 falls through to sector 0,
-    # matching the old jnp.maximum(sector, 0) semantics)
+    # per-position lookup as S static selects rather than an
+    # element-granular (R, W) gather from the (R, S) table; bit-exact
+    # (sector -1 falls through to sector 0)
     gate = jnp.broadcast_to(gate_rs[:, 0:1], sector.shape)
     for s in range(1, S):
         gate = jnp.where(sector == s, gate_rs[:, s:s + 1], gate)
@@ -164,12 +164,8 @@ def _gap_sq(xyz: Array) -> Array:
 
 def _topk_iter(x: Array, k: int) -> Tuple[Array, Array]:
     """Exact top-k along the last axis (ties surface in ascending-index
-    order, same as iterative argmax).
-
-    k == 1 lowers to a plain argmax reduction — measurably cheaper than
-    the TPU TopK custom call (~0.35 ms per 64x6x2048 call); k > 1 uses
-    ``lax.top_k`` (the old "top_k compiles to a full sort" note is stale,
-    and the k-pass argmax fallback it justified was slower for k >= 6)."""
+    order, same as iterative argmax). k == 1 lowers to a plain argmax
+    reduction; k > 1 uses ``lax.top_k``."""
     if k == 1:
         i = jnp.argmax(x, axis=-1).astype(jnp.int32)
         v = jnp.take_along_axis(x, i[..., None], axis=-1)[..., 0]
@@ -202,9 +198,8 @@ def _pick_rounds(curv: Array, base_mask: Array, sector: Array, gap: Array,
     S = cfg.num_sectors
     T = picks_per_round
     n_rounds = -(-n_total // T)
-    # (R, S, W) layout: W stays the minor (lane) dim — a (R, W, S) tensor
-    # pads S=6 up to the 128-lane tile and then needs a relayout before
-    # the per-sector top_k
+    # (R, S, W) layout: W stays the minor dim, so the per-sector top_k
+    # reduces along contiguous memory
     sec_onehot = sector[:, None, :] == jnp.arange(S)[None, :, None]  # (R, S, W)
 
     score = curv if maximize else -curv
@@ -239,9 +234,8 @@ def _pick_rounds(curv: Array, base_mask: Array, sector: Array, gap: Array,
         # newly suppressed iff some surviving pick p of this round has
         # |w - fi_p| <= n with an unbroken gap chain between them
         # (cb0[w] == cb0[fi_p] counts broken links on the open interval;
-        # w == fi_p marks the pick itself). A TPU scatter here costs
-        # ~0.36 ms/round; this broadcast-compare is the same result at
-        # memory bandwidth.
+        # w == fi_p marks the pick itself). A broadcast-compare instead of
+        # a scatter, so the whole round stays one elementwise fusion.
         w_pos = jnp.arange(W, dtype=fi.dtype)[None, None, :]   # (1, 1, W)
         near_w = jnp.abs(w_pos - fi[:, :, None]) <= cfg.neighbor_suppress
         chain_w = cb0[:, None, :] == fcb[:, :, None]
@@ -261,39 +255,13 @@ def _pick_rounds(curv: Array, base_mask: Array, sector: Array, gap: Array,
     return picks, suppressed
 
 
-def use_fused_picks(cfg: FeatureConfig) -> bool:
-    """Resolve the fused_picks tri-state (Pallas kernel on TPU by default;
-    the XLA rounds stay the reference implementation and the CPU path)."""
-    if cfg.fused_picks == "on":
-        return True
-    if cfg.fused_picks == "off":
-        return False
-    return jax.default_backend() == "tpu"
-
-
 def run_pick_rounds(curv: Array, pickable: Array, sector: Array, gap: Array,
                     corner_gate_arr: Array, cfg: FeatureConfig):
     """All three pick phases (sharp -> less-sharp -> flat, chained
     suppression). Returns (corner_picks (20,R,S), flat_picks (4,R,S),
     suppressed-after-corner-phases) — the latter is what the less-flat
-    mask consumes. On TPU the phases run as ONE Pallas kernel
-    (ops.pick_rounds, bit-identical picks — tests/test_pick_rounds.py)."""
+    mask consumes."""
     n_rest = cfg.less_sharp_per_sector - cfg.sharp_per_sector
-    if use_fused_picks(cfg):
-        from msf_loam_tpu.ops.pick_rounds import pick_rounds_pallas
-
-        score_c = jnp.where(pickable & (curv > corner_gate_arr), curv, -_BIG)
-        score_f = jnp.where(pickable & (curv < cfg.curvature_threshold),
-                            -curv, -_BIG)
-        bad = (gap > cfg.neighbor_gap_sq).astype(jnp.int32)
-        cb0 = _prefix_sum_lanes(bad) - bad
-        return pick_rounds_pallas(
-            score_c, score_f, sector, cb0,
-            S=cfg.num_sectors, nsup=cfg.neighbor_suppress,
-            n_sharp=cfg.sharp_per_sector, n_rest=n_rest, rest_T=6,
-            n_flat=cfg.flat_per_sector)
-
-    # XLA rounds (reference implementation; CPU path)
     corner_gate = lambda c: c > corner_gate_arr
     # corner picks (max curvature, > threshold): the sharp picks stay
     # exact single-pick rounds (they anchor the edge factors); the bulk
@@ -365,6 +333,7 @@ def _pad_or_trim(pb: PointBatch, capacity: int) -> PointBatch:
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
+@f32_matmuls
 def extract_features(ring_image: RingImage, scan_time: Array,
                      cfg: FeatureConfig) -> ScanFeatures:
     """Full feature extraction: RingImage -> five feature clouds.
@@ -387,8 +356,10 @@ def extract_features(ring_image: RingImage, scan_time: Array,
 
     corner_gate_arr = corner_gate_array(curv, eligible, sector, cfg)
 
-    corner_picks, flat_picks, suppressed = run_pick_rounds(
-        curv, pickable, sector, gap, corner_gate_arr, cfg)
+    # named scopes mark the frame's stages in profiler traces
+    with jax.named_scope("pick_rounds"):
+        corner_picks, flat_picks, suppressed = run_pick_rounds(
+            curv, pickable, sector, gap, corner_gate_arr, cfg)
 
     sharp = _gather_picks(ring_image, corner_picks, cfg.sharp_per_sector,
                           R * S * cfg.sharp_per_sector)
@@ -448,13 +419,10 @@ def extract_features_batched(imgs: RingImage, scan_time: Array,
     Only the per-lane less-flat voxel compaction vmaps: its dedup sort
     must stay lane-local.
 
-    Status: measured ~16% cheaper per lane than the vmapped form in an
-    isolated fused loop (scripts/profile_batch_feat.py), but REJECTED in
-    the batched pipeline's scan body, where the (B*R, W) <-> (B, ...)
-    relayouts it forces on scan-carried clouds cost more than the pick
-    machinery saves (212.7 -> 192.3 scans/s aggregate, B=8 real TPU).
-    Kept as the measured-alternative record and for callers whose
-    consumers want flattened-row layouts.
+    Not used by the batched pipeline, whose scan body vmaps
+    ``extract_features`` instead (the flattened form forces
+    (B*R, W) <-> (B, ...) relayouts on the scan-carried clouds). Kept for
+    callers whose consumers want flattened-row layouts.
 
     Returns ScanFeatures whose leaves carry a leading (B,) axis, leaf-
     for-leaf identical to ``jax.vmap(extract_features)`` (pinned by

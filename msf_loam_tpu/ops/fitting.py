@@ -203,8 +203,8 @@ def fit_planes_two_scale(near: Array, near_valid: Array,
 def _weighted_scatter(cand: Array, w: Array) -> Tuple[Array, Array, Array]:
     """(count, center, centered scatter matrix) of ``cand`` rows weighted
     by 0/1 mask ``w`` — the sufficient statistics for line/plane fits,
-    computed WITHOUT materializing a gathered neighbor list (TPU gathers
-    are row-latency-bound; einsums over the candidate slab are not)."""
+    computed WITHOUT materializing a gathered neighbor list: einsums over
+    the candidate slab replace a per-query top-k gather."""
     wf = w.astype(cand.dtype)
     cnt = jnp.sum(wf, axis=-1)
     center = jnp.einsum("...c,...ci->...i", wf, cand) \
@@ -281,7 +281,7 @@ def fit_planes_two_scale_masked(near: Array, near_valid: Array,
 
     The wide fallback only needs the centered scatter matrix of the
     in-radius candidates — not a sorted neighbor list — so the top-k and
-    its row-latency-bound take_along_axis gather (Q*k2 rows) are replaced
+    its take_along_axis gather (Q*k2 rows) are replaced
     by two masked einsums. Uses ALL in-radius candidates (<= the full
     octant gather), which also makes the fallback fit better-conditioned
     than any 16-point subset.

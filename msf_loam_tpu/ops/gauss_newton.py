@@ -1,9 +1,9 @@
 """Batched on-manifold Gauss-Newton / Levenberg-Marquardt.
 
-The TPU replacement for ``ceres::Solve`` over analytic SE(3) factors
+The batched replacement for ``ceres::Solve`` over analytic SE(3) factors
 (``odometry_scan_matcher.cc:269-274``, ``mapping_scan_matcher.cc:250-259``):
 all residual blocks are evaluated at once, the normal equations are dense
-reductions (J^T W J / J^T W r — MXU work), the D-dim solve happens on
+reductions (J^T W J / J^T W r, f32 matmuls), the D-dim solve happens on
 device, and the update is a manifold retraction (t += dt, q *= exp(dtheta)
 — ``pose_local_parameterization.cc:6-21``).
 
@@ -127,6 +127,7 @@ def gauss_newton(build_blocks: Callable[[Pose, Array], Tuple[Sequence[ResidualBl
     data-parallel Hessian-block reduction.
     """
 
+    @jax.named_scope("gauss_newton")
     def step(carry, _):
         pose, vel = carry
         blocks, weights = build_blocks(pose, vel)

@@ -1,12 +1,13 @@
-"""Batched k-nearest-neighbor search on TPU.
+"""Batched exact k-nearest-neighbor search.
 
 Replaces the reference's per-point ``pcl::KdTreeFLANN`` queries
 (``odometry_scan_matcher.cc:57-61,84,169``; ``mapping_scan_matcher.cc:66-73,
 125,195``) with dense blockwise distance computation: the Q x M distance
 matrix is built chunk-by-chunk as ``|q|^2 + |r|^2 - 2 q.r^T`` so the inner
-product rides the MXU, and a running top-k is merged per chunk. No trees,
-no pointers — O(Q*M) FLOPs that the hardware eats at speed-of-light, which
-at LOAM scales (Q ~ 4k, M ~ 100k) beats tree construction + traversal.
+product is one matmul (pinned to f32 precision — the expansion cancels
+catastrophically otherwise), and a running top-k is merged per chunk. No
+trees, no pointers — O(Q*M) dense work instead of tree construction +
+traversal.
 
 ``knn_hashgrid`` (the production mapping path) lives in ``slam/voxel_map.py``
 because it is fused with the map data structure.
@@ -19,13 +20,18 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
+
+from msf_loam_tpu.core.precision import f32_matmuls
 
 Array = jax.Array
 
-_INF = jnp.float32(3.0e38)
+# NumPy scalar: importing this module must not initialise a JAX backend
+_INF = np.float32(3.0e38)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "chunk"))
+@f32_matmuls
 def knn(query: Array, query_mask: Array, ref: Array, ref_mask: Array,
         k: int = 5, chunk: int = 8192) -> Tuple[Array, Array]:
     """Exact k-NN from each query point into the reference set.
@@ -34,7 +40,7 @@ def knn(query: Array, query_mask: Array, ref: Array, ref_mask: Array,
       query: (Q, 3) float32; query_mask: (Q,) bool.
       ref:   (M, 3) float32; ref_mask:   (M,) bool.
       k:     neighbors per query.
-      chunk: reference points per block (trades VMEM for steps).
+      chunk: reference points per block (trades memory for steps).
 
     Returns:
       (d2, idx): (Q, k) squared distances (ascending) and reference indices.
@@ -57,7 +63,7 @@ def knn(query: Array, query_mask: Array, ref: Array, ref_mask: Array,
         best_d, best_i = carry
         r, rm, base = inp
         r_norm = jnp.sum(r * r, axis=-1)  # (C,)
-        d2 = q_norm + r_norm[None, :] - 2.0 * (q @ r.T)  # (Q, C) on the MXU
+        d2 = q_norm + r_norm[None, :] - 2.0 * (q @ r.T)  # (Q, C)
         d2 = jnp.where(rm[None, :], jnp.maximum(d2, 0.0), _INF)
         idx = base + jnp.arange(chunk, dtype=jnp.int32)[None, :]
         cat_d = jnp.concatenate([best_d, d2], axis=1)

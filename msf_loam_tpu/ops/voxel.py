@@ -1,6 +1,6 @@
 """Voxel-grid downsampling as segment reductions.
 
-TPU-native replacement for ``pcl::VoxelGrid`` as used by the reference for
+Batched replacement for ``pcl::VoxelGrid`` as used by the reference for
 less-flat thinning (leaf 0.2, ``msf_loam_node.cc:113-126``), the mapping
 feature filters (leaf 0.2/0.4, ``laser_mapping.cc:67-68``) and the per-cell
 map re-filter (``hybrid_grid.cc:503-521``). PCL keeps voxel centroids; we
@@ -13,13 +13,15 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 Array = jax.Array
 
 # Large prime multipliers for 3D -> 1D voxel key hashing (open addressing).
-_P1 = jnp.uint32(73856093)
-_P2 = jnp.uint32(19349663)
-_P3 = jnp.uint32(83492791)
+# NumPy scalars: importing this module must not initialise a JAX backend.
+_P1 = np.uint32(73856093)
+_P2 = np.uint32(19349663)
+_P3 = np.uint32(83492791)
 
 
 def voxel_keys(xyz: Array, leaf: float, origin: float = 4096.0) -> Array:
@@ -68,8 +70,8 @@ def voxel_downsample_compact_idx(xyz: Array, mask: Array, leaf: float,
     representative (lowest original index) per occupied voxel, in voxel-key
     order, padded with 0 where fewer than ``capacity`` voxels are occupied.
     Equivalent to ``voxel_downsample_masked`` followed by a stable
-    compaction, but skips the second full-length argsort (at 64-ring scale
-    that second sort over R*W=131k elements costs ~1 ms on TPU — xprof).
+    compaction, but skips the second full-length argsort (over R*W=131k
+    elements at 64-ring scale).
     """
     n = xyz.shape[0]
     # lax.top_k below requires capacity <= n (the scatter-based compaction
@@ -82,105 +84,21 @@ def voxel_downsample_compact_idx(xyz: Array, mask: Array, leaf: float,
     iota = jnp.arange(n, dtype=jnp.int32)
     key = jnp.where(mask, key, iota | jnp.int32(-2147483648))
     # Multi-operand sort carries the permutation AND the mask through in
-    # one pass — `key[order]` / `mask[order]` random gathers at this size
-    # cost ~1 ms each on TPU, the extra sort operands are ~free.
+    # one pass instead of two `key[order]` / `mask[order]` random gathers.
     ks, order, mask_s = jax.lax.sort(
         [key, iota, mask.astype(jnp.int32)], num_keys=1, is_stable=True)
     first = jnp.concatenate([jnp.ones((1,), bool), ks[1:] != ks[:-1]])
     keep = first & (mask_s == 1)
     # compact by rank WITHOUT a scatter: the kept positions are already in
     # output order, so the first `capacity` of them are exactly the
-    # `capacity` smallest sorted-array positions among `keep` — one top_k.
-    # (A 131k-update scatter costs ~0.6 ms on TPU; this is ~0.1 ms.)
+    # `capacity` smallest sorted-array positions among `keep` — one top_k
+    # instead of a 131k-update scatter.
     posval = jnp.where(keep, iota, jnp.int32(2**30))
     neg_p, _ = jax.lax.top_k(-posval, capacity)
     p = -neg_p                                   # ascending kept positions
     valid = p < jnp.int32(2**30)
     idx = order[jnp.minimum(p, n - 1)].astype(jnp.int32)
     return jnp.where(valid, idx, 0), valid
-
-
-def voxel_downsample_grouped_idx(xyz: Array, mask: Array, leaf: float,
-                                 capacity: int, world_xyz: Array,
-                                 cell_size: float, group_budget: int,
-                                 salt: Array | None = None):
-    """``voxel_downsample_compact_idx`` whose output is additionally
-    GROUPED by the map octant base cell of each point's world position.
-
-    The scan-to-map octant gather fetches 8 hash slots per query, but
-    queries sharing an octant BASE cell share all 8 slots — measured ~50x
-    slot duplication across a frame (docs/RESULTS.md). Since this
-    downsample already pays a full sort, sorting by the 2-key
-    ``(base_cell, leaf_voxel)`` makes the query batch come out grouped by
-    base cell for free, enabling the two-level gather
-    (``slam.voxel_map.gather_candidates_planar_grouped``): one slab fetch
-    per GROUP instead of per query.
-
-    The base cell is the octant low corner ``floor((w - cell/2)/cell)``
-    (see ``voxel_map.neighbor_cells8``), packed EXACTLY (10 bits/axis,
-    clamped) relative to the frame's first-point cell so no hash
-    collisions can merge distinct cells within +-512 cells (~1 km at the
-    2 m default) of the scan.
-
-    Dedup semantics: one representative per (base cell, leaf voxel) pair
-    instead of per leaf voxel — a leaf voxel straddling a (half-cell-
-    shifted) base-cell boundary may keep one representative per side.
-    Slightly denser queries than ``voxel_downsample_compact_idx``;
-    accuracy-neutral (golden-eval-guarded).
-
-    Returns ``(idx (capacity,), valid (capacity,), gid (capacity,),
-    rep_pos (group_budget,))``:
-      * idx/valid — as voxel_downsample_compact_idx, but in grouped order
-      * gid       — ascending group id per output row; invalid rows and
-                    rows past ``group_budget - 1`` groups carry the
-                    overflow id ``group_budget - 1`` (candidates for that
-                    sentinel group are dropped by the gather)
-      * rep_pos   — output-row index of each group's first member
-                    (clipped to 0 for empty groups; only rows actually
-                    referenced by some gid matter downstream)
-    """
-    n = xyz.shape[0]
-    capacity = min(capacity, n)
-    G = group_budget
-
-    lkey = voxel_keys(xyz, leaf)
-    if salt is not None:
-        lkey = lkey ^ (salt.astype(jnp.int32) * jnp.int32(40503))
-    iota = jnp.arange(n, dtype=jnp.int32)
-    # exact packed base-cell key, frame-relative (no hash collisions)
-    base = jnp.floor((world_xyz - 0.5 * cell_size) / cell_size)
-    ref = base[0]                      # any in-frame anchor cell
-    ref = jnp.where(jnp.isfinite(ref), ref, 0.0)   # NaN anchor guard
-    rel = jnp.clip(base - ref[None, :], -512.0, 511.0).astype(jnp.int32) + 512
-    ckey = (rel[:, 0] << 20) | (rel[:, 1] << 10) | rel[:, 2]
-    # invalid points: unique huge cell keys so they sort last and never
-    # merge (ckey of valid points is < 2^30)
-    ckey = jnp.where(mask, ckey, jnp.int32(2**30) + iota)
-    lkey = jnp.where(mask, lkey, iota | jnp.int32(-2147483648))
-
-    cks, ks, order, mask_s = jax.lax.sort(
-        [ckey, lkey, iota, mask.astype(jnp.int32)], num_keys=2,
-        is_stable=True)
-    first = jnp.concatenate(
-        [jnp.ones((1,), bool), (ks[1:] != ks[:-1]) | (cks[1:] != cks[:-1])])
-    keep = first & (mask_s == 1)
-    posval = jnp.where(keep, iota, jnp.int32(2**30))
-    neg_p, _ = jax.lax.top_k(-posval, capacity)
-    p = -neg_p
-    valid = p < jnp.int32(2**30)
-    pc = jnp.minimum(p, n - 1)
-    idx = order[pc].astype(jnp.int32)
-
-    ck_out = cks[pc]                                   # (capacity,)
-    newg = jnp.concatenate(
-        [jnp.zeros((1,), bool), ck_out[1:] != ck_out[:-1]])
-    gid = jnp.cumsum(newg.astype(jnp.int32))
-    gid = jnp.where(valid, jnp.minimum(gid, G - 1), G - 1)
-    opos = jnp.arange(capacity, dtype=jnp.int32)
-    rep_pos = jnp.full((G,), capacity, jnp.int32).at[gid].min(
-        jnp.where(valid, opos, capacity), mode="drop")
-    rep_pos = jnp.minimum(rep_pos, capacity - 1)
-    return jnp.where(valid, idx, 0), valid, gid, rep_pos
 
 
 def voxel_downsample_centroid(xyz: Array, mask: Array, leaf: float,

@@ -1,9 +1,9 @@
 """Device mesh construction + sharding helpers.
 
-The communication layer of the TPU build (SURVEY.md §2.9): where the
+The communication layer (SURVEY.md §2.9): where the
 reference has a mutex-guarded queue between two threads
 (``laser_mapping.h:71-72``) and no distributed backend at all, we scale by
-laying out work over a ``jax.sharding.Mesh`` and letting XLA insert ICI
+laying out work over a ``jax.sharding.Mesh`` and letting XLA insert
 collectives (psum / all_gather) inside ``shard_map``-ped programs.
 
 Axes:

@@ -1,15 +1,17 @@
-"""Multi-host runtime initialization.
+"""Multi-process runtime initialization.
 
-The ``jax.distributed`` bootstrap for pod-slice deployments — the
-communication-backend plank of SURVEY.md §2.9 (the reference is
-single-process; this is where the TPU build goes multi-host). After
-``initialize()``, ``jax.devices()`` spans the slice and every mesh built by
-``parallel.mesh.make_mesh`` shards over ICI/DCN transparently.
+The ``jax.distributed`` bootstrap for deployments that span several
+processes — the communication-backend plank of SURVEY.md §2.9 (the
+reference is single-process). After ``initialize()``, ``jax.devices()``
+spans every process and every mesh built by ``parallel.mesh.make_mesh``
+shards across them transparently.
 
-Single-machine simulation (CI / tests): run N processes with
-``MSF_COORD=localhost:PORT MSF_NUM_PROCESSES=N MSF_PROCESS_ID=i``, or use
-the in-process 8-virtual-device CPU mesh (tests/conftest.py) which needs no
-initialization at all.
+Initialization is explicit only: it runs when a coordinator is given, as
+an argument or as ``MSF_COORD=host:PORT`` with ``MSF_NUM_PROCESSES=N`` and
+``MSF_PROCESS_ID=i``, and then a failure raises. With no coordinator it is
+a no-op: one process on one host drives all of that host's devices itself
+(a four-GPU host needs no distributed runtime), and the in-process
+8-virtual-device CPU mesh (tests/conftest.py) needs none either.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ _initialized = False
 def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> bool:
-    """Initialize jax.distributed from args or MSF_*/JAX_* env vars.
+    """Initialize jax.distributed from args or the MSF_* env vars.
 
     Returns True if a multi-process runtime was started; False for
-    single-process operation (no-op — the common case on one host).
+    single-process operation (no coordinator given).
     """
     global _initialized
     import jax
@@ -37,20 +39,13 @@ def initialize(coordinator: Optional[str] = None,
     if _initialized:
         return True
     coordinator = coordinator or os.environ.get("MSF_COORD")
+    if not coordinator:
+        return False
     num_processes = num_processes or _int_env("MSF_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("MSF_PROCESS_ID")
-
-    if not coordinator or not num_processes:
-        # also honor the standard JAX cluster auto-detection (TPU pods set
-        # the metadata up themselves)
-        try:
-            jax.distributed.initialize()
-            _initialized = True
-            logger.info("jax.distributed auto-initialized: %d processes",
-                        jax.process_count())
-            return jax.process_count() > 1
-        except Exception:
-            return False
+    if not num_processes:
+        raise ValueError(f"coordinator {coordinator!r} given without a "
+                         f"process count (MSF_NUM_PROCESSES)")
 
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=int(num_processes),

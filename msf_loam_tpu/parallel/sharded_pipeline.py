@@ -1,14 +1,18 @@
 """End-to-end SLAM with the voxel map sharded across devices.
 
-The BASELINE.json config-5 configuration as a running pipeline: feature
-extraction, odometry and the GN solves execute replicated on every device
-while map storage, inserts and k-NN queries shard over the mesh 'map' axis
-(``parallel.sharded_map``). Queries merge with an all-gather, so the
-matcher sees exactly the single-device answer — the trajectory matches the
-dense-map pipeline to float tolerance (tested on the virtual-device mesh).
+The BASELINE.json config-5 configuration as a running pipeline: map
+storage, inserts and k-NN queries shard over the mesh 'map' axis
+(``parallel.sharded_map``), and scan-to-scan odometry is point-axis
+sharded over the same axis (``parallel.sharded_odometry``: query clouds
+split, reference clouds replicated, GN normal equations psum'd). Feature
+extraction and the scan-to-map GN solve run replicated. Queries merge with
+an all-gather, so the matcher sees exactly the single-device answer — the
+trajectory matches the dense-map pipeline to float tolerance (tested on the
+virtual-device mesh).
 
-On a pod slice the same code runs with ICI collectives carrying the merge;
-`parallel.runtime.initialize()` brings up multi-host meshes.
+On one multi-GPU host one process drives every card and XLA hands the
+collectives to NCCL; ``parallel.runtime.initialize()`` brings up meshes
+that span several processes.
 """
 
 from __future__ import annotations

@@ -7,10 +7,9 @@ batch and how a serving deployment packs many robots per chip.
 
 Key design: the B per-sequence hash maps FUSE into one table of B*H slots
 (sequence b owns [b*H, (b+1)*H)), so map gathers and scatters are single
-flat operations — vmapping gather/scatter was measured ~2x SLOWER per scan
-than single-stream; the fused table restores the single-stream access
-pattern at B-fold width. Everything else (features, odometry, GN solves)
-vmaps cleanly (dense math).
+flat operations with the single-stream access pattern at B-fold width
+instead of B vmapped gathers/scatters. Everything else (features,
+odometry, GN solves) vmaps cleanly (dense math).
 """
 
 from __future__ import annotations
@@ -22,15 +21,15 @@ import jax
 import jax.numpy as jnp
 
 from msf_loam_tpu.config import MsfLoamConfig
-from msf_loam_tpu.core.pointcloud import PointBatch, RingImage, ScanFeatures
+from msf_loam_tpu.core.pointcloud import RingImage, ScanFeatures
+from msf_loam_tpu.core.precision import f32_matmuls
 from msf_loam_tpu.core.se3 import Pose
 from msf_loam_tpu.ops import features as feat_mod
 from msf_loam_tpu.ops import fitting
 from msf_loam_tpu.ops import gauss_newton as gn
 from msf_loam_tpu.ops import icp_residuals as icp
 from msf_loam_tpu.slam import odometry, voxel_map
-from msf_loam_tpu.slam.pipeline import (downsample_features,
-                                        downsample_features_grouped)
+from msf_loam_tpu.slam.pipeline import downsample_features
 from msf_loam_tpu.slam.voxel_map import (VoxelHashMap, _hash_cells,
                                          insert_at_slots, neighbor_cells8)
 
@@ -166,6 +165,7 @@ def _fused_evict_far(vmap_state: VoxelHashMap, H: int, centers: Array,
     return voxel_map.evict_far(vmap_state, per_slot, radius)
 
 
+@jax.named_scope("map_gather")
 def _fused_gather_candidates(vmap_state: VoxelHashMap, H: int, query: Array,
                              query_mask: Array) -> Tuple[Array, Array]:
     """Octant gather over the fused table, selection deferred (the batched
@@ -183,87 +183,37 @@ def _fused_gather_candidates(vmap_state: VoxelHashMap, H: int, query: Array,
     return (cand.reshape(B, Q, 8 * P, 3), occup.reshape(B, Q, 8 * P))
 
 
-def _fused_gather_candidates_planar(vmap_state: VoxelHashMap, H: int,
-                                    query: Array, query_mask: Array) -> Array:
-    """Planar-layout octant gather over the fused table for the Pallas
-    selection+fit kernel: (3, B*Q, 8P). Unoccupied entries hold
-    voxel_map.EMPTY_COORD by table invariant; masked queries are gated by
-    the caller (see voxel_map.gather_candidates_planar)."""
-    B, Q, _ = query.shape
-    P = vmap_state.slab_capacity
-    del query_mask  # folded into the caller's validity gates
-    q = query.reshape(B * Q, 3)
-    ncells = neighbor_cells8(q, vmap_state.cell_size)
-    slots = _hash_cells(ncells, H)
-    offset = jnp.repeat(jnp.arange(B, dtype=jnp.int32) * H, Q)
-    slots = slots + offset[:, None]
-    tp = jnp.transpose(vmap_state.points, (2, 0, 1))      # (3, B*H, P)
-    cand = tp[:, slots]                                    # (3, BQ, 8, P)
-    return cand.reshape(3, B * Q, 8 * P)
-
-
-def _fused_gather_candidates_planar_grouped(vmap_state: VoxelHashMap,
-                                            H: int, query: Array,
-                                            gid: Array, rep_pos: Array
-                                            ) -> Array:
-    """Grouped two-level octant gather over the fused table — the batched
-    analog of voxel_map.gather_candidates_rows_grouped: one slab fetch
-    per (lane, base-cell group) instead of per query, re-expanded per
-    query from the compact per-lane buffer, in the select kernel's
-    planar-packed ROWS layout (B*Q, 3*8P)."""
-    B, Q, _ = query.shape
-    G = rep_pos.shape[1]
-    P = vmap_state.slab_capacity
-    rep_w = jnp.take_along_axis(
-        query, jnp.clip(rep_pos, 0, Q - 1)[..., None], axis=1)  # (B, G, 3)
-    ncells = neighbor_cells8(rep_w.reshape(B * G, 3), vmap_state.cell_size)
-    slots = _hash_cells(ncells, H)                              # (BG, 8)
-    offset = jnp.repeat(jnp.arange(B, dtype=jnp.int32) * H, G)
-    slots = slots + offset[:, None]
-    # row gather from the bitcast flat view (no full-table relayout copy),
-    # output in the select kernel's planar-packed ROWS layout (BQ, 3*8P)
-    grp = vmap_state.points.reshape(-1, 3 * P)[slots]           # (BG,8,3P)
-    grp = grp.reshape(B * G, 8, P, 3)
-    grp_rows = jnp.transpose(grp, (0, 3, 1, 2)).reshape(B, G, 3 * 8 * P)
-    grp_rows = grp_rows.at[:, G - 1, :].set(voxel_map.EMPTY_COORD)
-    cand = jnp.take_along_axis(
-        grp_rows, jnp.clip(gid, 0, G - 1)[..., None], axis=1)   # (B,Q,24P)
-    return cand.reshape(B * Q, 3 * 8 * P)
-
-
-def _batched_fused_associate(candp_c, candp_s, cell_c, cell_s, corner_ds,
-                             surf_ds, cw, sw, mc):
-    """Per-round association on the fused Pallas kernel (B*Q rows at once).
-
-    Returns (edge_valid, lines, plane_valid, planes)-shaped arrays in
-    (B, Q, ...) layout matching the XLA path."""
-    from msf_loam_tpu.ops.select_fit import select_fit_pallas
-    B, Qc, _ = cw.shape
-    _, Qs, _ = sw.shape
-    fc = select_fit_pallas(
-        candp_c, cw.reshape(-1, 3), (cell_c * 0.5) ** 2, cell_c ** 2,
-        k=mc.knn, mode="line", min_count=mc.knn,
-        eig_ratio=mc.line_eig_ratio)
-    edge_valid = ((fc.d2[:, mc.knn - 1].reshape(B, Qc) < mc.knn_dist_sq_max)
-                  & corner_ds.mask & fc.valid.reshape(B, Qc))
-    fs = select_fit_pallas(
-        candp_s, sw.reshape(-1, 3), (cell_s * 0.5) ** 2, cell_s ** 2,
-        k=mc.knn, mode="plane2" if mc.plane_fallback else "plane",
-        min_count=mc.knn, min_wide=mc.knn, tol=mc.plane_fit_tol)
-    plane_valid = ((fs.d2[:, mc.knn - 1].reshape(B, Qs) < mc.knn_dist_sq_max)
-                   & surf_ds.mask & fs.valid.reshape(B, Qs))
-    return (edge_valid, fc.center.reshape(B, Qc, 3),
-            fc.normal.reshape(B, Qc, 3), plane_valid,
-            fs.center.reshape(B, Qs, 3), fs.normal.reshape(B, Qs, 3))
+@jax.named_scope("select_fit")
+def _batched_select_fit(cand_c, val_c, cand_s, val_s, cw, sw, cell_c, cell_s,
+                        corner_ds, surf_ds, mc):
+    """One round's k-NN selection + weighted line/plane fits for all lanes
+    (the batched twin of mapping._CandidateCache.associate)."""
+    d2c, w_c, _ = voxel_map.select_knn_weights(cand_c, val_c, cw, cell_c,
+                                               k=mc.knn)
+    gate_c = (d2c[..., mc.knn - 1] < mc.knn_dist_sq_max) & corner_ds.mask
+    lines = fitting.fit_lines_weighted(cand_c, w_c, mc.knn,
+                                       mc.line_eig_ratio)
+    edge_valid = gate_c & lines.valid
+    d2s, w_s, wide = voxel_map.select_knn_weights(cand_s, val_s, sw, cell_s,
+                                                  k=mc.knn)
+    if mc.plane_fallback:
+        planes = fitting.fit_planes_two_scale_weighted(
+            cand_s, w_s, wide, mc.knn, mc.plane_fit_tol, min_wide=mc.knn)
+    else:
+        planes = fitting.fit_planes_weighted(cand_s, w_s, mc.knn,
+                                             mc.plane_fit_tol)
+    gate_s = (d2s[..., mc.knn - 1] < mc.knn_dist_sq_max) & surf_ds.mask
+    plane_valid = gate_s & planes.valid
+    return (edge_valid, lines.center, lines.direction, plane_valid,
+            planes.center, planes.normal)
 
 
 def _batched_map_match(corner_map, surf_map, H, corner_ds, surf_ds, poses,
-                       cfg, corner_groups=None, surf_groups=None
-                       ) -> Tuple[Pose, Array]:
+                       cfg) -> Tuple[Pose, Array]:
     """2 re-association rounds x 6-iter GN for all B sequences. Candidate
-    octants gather ONCE per frame over the fused table (B*Q*8 rows is the
-    single most row-latency-expensive op in the program); each round only
-    re-runs selection + weighted fits against the updated poses."""
+    octants gather ONCE per frame over the fused table (B*Q*8 slab rows);
+    each round only re-runs selection + weighted fits against the updated
+    poses."""
     mc = cfg.mapping
     B = poses.t.shape[0]
     map_ok = jnp.ones((B,), bool)  # per-sequence gates handled by counts below
@@ -271,59 +221,19 @@ def _batched_map_match(corner_map, surf_map, H, corner_ds, surf_ds, poses,
 
     apply_b = jax.vmap(lambda p, x: p.apply(x))
 
-    from msf_loam_tpu.slam.mapping import use_fused_select, use_grouped_gather
-    fused = use_fused_select(mc)
-    grouped = (use_grouped_gather(mc) and corner_groups is not None
-               and surf_groups is not None)
-    if fused and grouped:
-        candp_c = _fused_gather_candidates_planar_grouped(
-            corner_map, H, apply_b(pose, corner_ds.xyz),
-            corner_groups.gid, corner_groups.rep_pos)
-        candp_s = _fused_gather_candidates_planar_grouped(
-            surf_map, H, apply_b(pose, surf_ds.xyz),
-            surf_groups.gid, surf_groups.rep_pos)
-    elif fused:
-        candp_c = _fused_gather_candidates_planar(
-            corner_map, H, apply_b(pose, corner_ds.xyz), corner_ds.mask)
-        candp_s = _fused_gather_candidates_planar(
-            surf_map, H, apply_b(pose, surf_ds.xyz), surf_ds.mask)
-    else:
-        cand_c, val_c = _fused_gather_candidates(
-            corner_map, H, apply_b(pose, corner_ds.xyz), corner_ds.mask)
-        cand_s, val_s = _fused_gather_candidates(
-            surf_map, H, apply_b(pose, surf_ds.xyz), surf_ds.mask)
+    cand_c, val_c = _fused_gather_candidates(
+        corner_map, H, apply_b(pose, corner_ds.xyz), corner_ds.mask)
+    cand_s, val_s = _fused_gather_candidates(
+        surf_map, H, apply_b(pose, surf_ds.xyz), surf_ds.mask)
 
     for _ in range(mc.outer_rounds):
         cw = apply_b(pose, corner_ds.xyz)        # (B, Qc, 3)
         sw = apply_b(pose, surf_ds.xyz)
-        if fused:
-            (edge_valid, line_c, line_n, plane_valid, plane_c,
-             plane_n) = _batched_fused_associate(
-                candp_c, candp_s, corner_map.cell_size, surf_map.cell_size,
-                corner_ds, surf_ds, cw, sw, mc)
-        else:
-            d2c, w_c, _ = voxel_map.select_knn_weights(
-                cand_c, val_c, cw, corner_map.cell_size, k=mc.knn)
-            gate_c = ((d2c[..., mc.knn - 1] < mc.knn_dist_sq_max)
-                      & corner_ds.mask)
-            lines = fitting.fit_lines_weighted(cand_c, w_c, mc.knn,
-                                               mc.line_eig_ratio)
-            edge_valid = gate_c & lines.valid
-            line_c, line_n = lines.center, lines.direction
-            d2s, w_s, wide = voxel_map.select_knn_weights(
-                cand_s, val_s, sw, surf_map.cell_size, k=mc.knn)
-            if mc.plane_fallback:
-                planes = fitting.fit_planes_two_scale_weighted(
-                    cand_s, w_s, wide, mc.knn, mc.plane_fit_tol,
-                    min_wide=mc.knn)
-            else:
-                planes = fitting.fit_planes_weighted(cand_s, w_s, mc.knn,
-                                                     mc.plane_fit_tol)
-            gate_s = ((d2s[..., mc.knn - 1] < mc.knn_dist_sq_max)
-                      & surf_ds.mask)
-            plane_valid = gate_s & planes.valid
-            plane_c, plane_n = planes.center, planes.normal
-
+        (edge_valid, line_c, line_n, plane_valid, plane_c,
+         plane_n) = _batched_select_fit(cand_c, val_c, cand_s, val_s, cw, sw,
+                                        corner_map.cell_size,
+                                        surf_map.cell_size, corner_ds,
+                                        surf_ds, mc)
         n_corr = (jnp.sum(edge_valid, axis=1) + jnp.sum(plane_valid, axis=1))
 
         def solve_one(p0, e_pts, e_c, e_n, e_v, s_pts, s_c, s_n, s_v):
@@ -351,12 +261,9 @@ def _frame_fn(cfg: MsfLoamConfig, H: int, state: BatchState,
     fc, oc, mc = cfg.features, cfg.odometry, cfg.mapping
     B = state.pose_odom.t.shape[0]
 
-    # vmapped per-lane extraction. Measured and REJECTED here: the
-    # flatten-lanes form (feat_mod.extract_features_batched) is ~16%
-    # cheaper per lane in an isolated fused loop, but IN THIS scan body it
-    # measured 212.7 -> 192.3 scans/s aggregate (B=8, real TPU) — the
-    # (B*R, W) <-> (B, ...) relayouts it forces on the scan-carried
-    # feature clouds cost more than the pick machinery saves.
+    # vmapped per-lane extraction (not the flatten-lanes form,
+    # feat_mod.extract_features_batched, whose (B*R, W) <-> (B, ...)
+    # relayouts land on the scan-carried feature clouds)
     feats = jax.vmap(lambda im: feat_mod.extract_features(
         im, jnp.float32(0.0), fc))(imgs)
 
@@ -372,40 +279,11 @@ def _frame_fn(cfg: MsfLoamConfig, H: int, state: BatchState,
     pose_odom = state.pose_odom.compose(step_pose)
 
     guess = state.pose_o2m.compose(pose_odom)
-    from msf_loam_tpu.slam.mapping import use_grouped_gather
-    grouped = use_grouped_gather(mc)
-    if grouped:
-        # grouping keys = per-lane world positions at the matcher's query
-        # transform (dense-path parity: pipeline._frame_core r5)
-        from msf_loam_tpu.imu import deskew as deskew_mod
-
-        def _key_world(pb, sp, g):
-            if oc.motion_deskew:
-                pb = deskew_mod.undistort_from_motion(pb, sp,
-                                                      fc.scan_period)
-            return g.apply(pb.xyz)
-
-        def ds_grouped(pb, sp, g, leaf, cap):
-            return downsample_features_grouped(
-                pb, leaf, cap, _key_world(pb, sp, g), mc.map_cell_size,
-                mc.gather_groups)
-
-        corner_ds, corner_groups = jax.vmap(
-            lambda pb, sp, g: ds_grouped(pb, sp, g, mc.line_resolution,
-                                         mc.corner_query_points))(
-            feats.corner_less_sharp, step_pose, guess)
-        surf_ds, surf_groups = jax.vmap(
-            lambda pb, sp, g: ds_grouped(pb, sp, g, mc.plane_resolution,
-                                         mc.max_query_points))(
-            feats.surf_less_flat, step_pose, guess)
-    else:
-        corner_groups = surf_groups = None
-        ds = jax.vmap(lambda pb: downsample_features(
-            pb, mc.line_resolution, mc.corner_query_points))
-        corner_ds = ds(feats.corner_less_sharp)
-        surf_ds = jax.vmap(lambda pb: downsample_features(
-            pb, mc.plane_resolution, mc.max_query_points))(
-            feats.surf_less_flat)
+    ds = jax.vmap(lambda pb: downsample_features(
+        pb, mc.line_resolution, mc.corner_query_points))
+    corner_ds = ds(feats.corner_less_sharp)
+    surf_ds = jax.vmap(lambda pb: downsample_features(
+        pb, mc.plane_resolution, mc.max_query_points))(feats.surf_less_flat)
     if oc.motion_deskew:
         # dense-path parity (slam.pipeline._frame_core): constant-velocity
         # reprojection from each lane's feedback-free odometry step
@@ -418,8 +296,7 @@ def _frame_fn(cfg: MsfLoamConfig, H: int, state: BatchState,
         surf_ds = dk(surf_ds, step_pose)
 
     pose_map, ok = _batched_map_match(
-        state.corner_map, state.surf_map, H, corner_ds, surf_ds, guess, cfg,
-        corner_groups=corner_groups, surf_groups=surf_groups)
+        state.corner_map, state.surf_map, H, corner_ds, surf_ds, guess, cfg)
     pose_map = jax.tree.map(
         lambda n, o: jnp.where(ok.reshape((B,) + (1,) * (n.ndim - 1)), n, o),
         pose_map, guess)
@@ -459,6 +336,7 @@ def _frame_fn(cfg: MsfLoamConfig, H: int, state: BatchState,
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",), donate_argnums=(1,))
+@f32_matmuls
 def run_batch(cfg: MsfLoamConfig, state: BatchState,
               ring_images: RingImage) -> Tuple[BatchState, Pose]:
     """Process T frames for all B sequences.

@@ -2,7 +2,7 @@
 
 The reference has NO mid-run checkpointing — only terminal artifacts (PLY +
 pbstream at shutdown, laser_mapping.cc:89-120; SURVEY.md §5). For a
-production TPU deployment we snapshot the full pipeline state — voxel map
+production deployment we snapshot the full pipeline state — voxel map
 shards, pose chain, estimator window, IMU-derived gravity/velocity — so a
 run can resume exactly where it stopped (elastic restart / preemption).
 
@@ -95,8 +95,8 @@ def save_sharded_checkpoint(pipe, path: str) -> None:
     it can address (keyed by their global slot offset) plus the replicated
     pose chain. In a multi-process run every rank writes
     ``<path>.proc<rank>``; single-process writes ``path`` directly. Resume
-    requires the same mesh shape (device count), which is how elastic
-    TPU-slice restarts work — the slice topology is fixed per job."""
+    requires the same mesh shape (device count): the device topology is
+    fixed per job."""
     import jax
 
     payload = {

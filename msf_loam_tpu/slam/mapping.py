@@ -1,6 +1,6 @@
 """Scan-to-map registration against the voxel hash map.
 
-TPU-native redesign of ``MappingScanMatcher::MatchScan2Map``
+Batched redesign of ``MappingScanMatcher::MatchScan2Map``
 (``/root/reference/src/slam/local/scan_matching/mapping_scan_matcher.cc:19-278``):
 per-point 5-NN KD-tree queries become one batched hash-grid gather
 (``slam.voxel_map.query_knn``), the per-point eigensolve/QR fits become the
@@ -70,10 +70,8 @@ def _associate(corner_map: VoxelHashMap, surf_map: VoxelHashMap,
         return _correspondences_from_selection(corner, surf, sel_c, sel_s,
                                                cfg)
 
-    # NOTE: fusing both feature types into one gather over a stacked table
-    # was measured SLOWER (112.6 -> 103.2 scans/s: the concat copies the
-    # tables and defeats buffer donation); two independent queries let XLA
-    # overlap them instead.
+    # two independent queries rather than one gather over a stacked table:
+    # the concat would copy both tables and defeat buffer donation
 
     # corners: 5-NN, gate on the 5th distance, line fit + eigen-ratio test
     sel_c = query_fn(corner_map, cw, corner.mask, k=cfg.knn)
@@ -117,115 +115,26 @@ def _correspondences_from_selection(corner: PointBatch, surf: PointBatch,
     )
 
 
-def use_fused_select(cfg: MappingConfig) -> bool:
-    """Resolve the fused_select tri-state: Pallas kernel on TPU by default
-    (the XLA fallback path stays the reference implementation and the CPU
-    path)."""
-    if cfg.fused_select == "on":
-        return True
-    if cfg.fused_select == "off":
-        return False
-    return jax.devices()[0].platform == "tpu"
-
-
-def use_two_level_gather(cfg: MappingConfig) -> bool:
-    """Resolve the gather_two_level tri-state. Measured and rejected as an
-    XLA-level program on TPU (r4, scripts/bench_gather_2l.py) — "auto"
-    currently resolves OFF everywhere; "on" forces it for experiments.
-    Only consulted on the fused-select path: warn when forced on while
-    fused selection resolves off (the non-fused branch would silently run
-    the one-level query path instead)."""
-    if cfg.gather_two_level == "on" and not use_fused_select(cfg):
-        import warnings
-        warnings.warn("mapping.gather_two_level='on' has no effect while "
-                      "fused_select resolves off (non-TPU backend or "
-                      "fused_select='off'): the non-fused candidate path "
-                      "always uses the one-level gather.")
-    return cfg.gather_two_level == "on"
-
-
-def use_grouped_gather(cfg: MappingConfig) -> bool:
-    """Resolve the gather_grouped tri-state: on the fused-select path by
-    default (it consumes the same planar candidate contract); the XLA
-    fallback path keeps the one-level gather."""
-    if cfg.gather_grouped == "on":
-        return True
-    if cfg.gather_grouped == "off":
-        return False
-    return use_fused_select(cfg)
-
-
 class _CandidateCache:
     """Per-frame octant gathers for both maps (voxel_map.gather_candidates):
-    TPU gathers are row-latency-bound, so they run once per frame and each
-    re-association round only re-runs distance/top-k selection against the
-    updated pose. Valid while inter-round pose updates stay well under
-    cell_size/2 (see gather_candidates docstring).
+    the gathers run once per frame and each re-association round only
+    re-runs distance/top-k selection against the updated pose. Valid while
+    inter-round pose updates stay well under cell_size/2 (see
+    gather_candidates docstring)."""
 
-    With ``cfg.fused_select`` resolved on (TPU), the per-round selection +
-    line/plane fits run as ONE Pallas kernel over planar candidates
-    (ops.select_fit) — one HBM read per round instead of ~5."""
-
+    @jax.named_scope("map_gather")
     def __init__(self, corner_map, surf_map, corner: PointBatch,
-                 surf: PointBatch, cw0: Array, sw0: Array,
-                 cfg: MappingConfig = None,
-                 corner_groups=None, surf_groups=None):
-        self.fused = use_fused_select(cfg) if cfg is not None else False
-        if self.fused:
-            grouped = (cfg is not None and use_grouped_gather(cfg)
-                       and corner_groups is not None
-                       and surf_groups is not None)
-            if grouped:
-                # rows layout: the select kernel slices x/y/z in-register,
-                # skipping the (Q,3,C)->(3,Q,C) transpose (xprof r5)
-                self.candp_c = voxel_map_mod.gather_candidates_rows_grouped(
-                    corner_map, cw0, corner_groups.gid, corner_groups.rep_pos)
-                self.candp_s = voxel_map_mod.gather_candidates_rows_grouped(
-                    surf_map, sw0, surf_groups.gid, surf_groups.rep_pos)
-            else:
-                if cfg is not None and use_two_level_gather(cfg):
-                    gather = functools.partial(
-                        voxel_map_mod.gather_candidates_planar_2l,
-                        u_max=cfg.gather_u_max)
-                else:
-                    gather = voxel_map_mod.gather_candidates_planar
-                self.candp_c = gather(corner_map, cw0, corner.mask)
-                self.candp_s = gather(surf_map, sw0, surf.mask)
-        else:
-            self.cand_c, self.val_c = voxel_map_mod.gather_candidates(
-                corner_map, cw0, corner.mask)
-            self.cand_s, self.val_s = voxel_map_mod.gather_candidates(
-                surf_map, sw0, surf.mask)
+                 surf: PointBatch, cw0: Array, sw0: Array):
+        self.cand_c, self.val_c = voxel_map_mod.gather_candidates(
+            corner_map, cw0, corner.mask)
+        self.cand_s, self.val_s = voxel_map_mod.gather_candidates(
+            surf_map, sw0, surf.mask)
         self.cell_c = corner_map.cell_size
         self.cell_s = surf_map.cell_size
 
-    def _associate_fused(self, corner: PointBatch, surf: PointBatch,
-                         cw: Array, sw: Array, cfg: MappingConfig
-                         ) -> MapCorrespondences:
-        from msf_loam_tpu.ops.select_fit import select_fit_pallas
-        fc = select_fit_pallas(
-            self.candp_c, cw, (self.cell_c * 0.5) ** 2, self.cell_c ** 2,
-            k=cfg.knn, mode="line", min_count=cfg.knn,
-            eig_ratio=cfg.line_eig_ratio)
-        edge_valid = ((fc.d2[:, cfg.knn - 1] < cfg.knn_dist_sq_max)
-                      & corner.mask & fc.valid)
-        fs = select_fit_pallas(
-            self.candp_s, sw, (self.cell_s * 0.5) ** 2, self.cell_s ** 2,
-            k=cfg.knn, mode="plane2" if cfg.plane_fallback else "plane",
-            min_count=cfg.knn, min_wide=cfg.knn, tol=cfg.plane_fit_tol)
-        plane_valid = ((fs.d2[:, cfg.knn - 1] < cfg.knn_dist_sq_max)
-                       & surf.mask & fs.valid)
-        return MapCorrespondences(
-            edge_points=corner.xyz, edge_c=fc.center, edge_n=fc.normal,
-            edge_valid=edge_valid,
-            plane_points=surf.xyz, plane_c=fs.center, plane_n=fs.normal,
-            plane_valid=plane_valid,
-        )
-
+    @jax.named_scope("select_fit")
     def associate(self, corner: PointBatch, surf: PointBatch, cw: Array,
                   sw: Array, cfg: MappingConfig) -> MapCorrespondences:
-        if self.fused:
-            return self._associate_fused(corner, surf, cw, sw, cfg)
         d2c, w_c, _ = voxel_map_mod.select_knn_weights(
             self.cand_c, self.val_c, cw, self.cell_c, k=cfg.knn)
         gate_c = (d2c[:, cfg.knn - 1] < cfg.knn_dist_sq_max) & corner.mask
@@ -265,26 +174,20 @@ class MappingResult(NamedTuple):
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def match_scan2map(corner_map: VoxelHashMap, surf_map: VoxelHashMap,
                    scan_corner: PointBatch, scan_surf: PointBatch,
-                   pose0: Pose, cfg: MappingConfig,
-                   corner_groups=None, surf_groups=None) -> MappingResult:
+                   pose0: Pose, cfg: MappingConfig) -> MappingResult:
     """Loosely-coupled scan-to-map GN (pre-IMU-init path,
     mapping_scan_matcher.cc:95-97,122-123)."""
     return match_scan2map_core(corner_map, surf_map, scan_corner, scan_surf,
-                               pose0, cfg, corner_groups=corner_groups,
-                               surf_groups=surf_groups)
+                               pose0, cfg)
 
 
 def match_scan2map_core(corner_map: VoxelHashMap, surf_map: VoxelHashMap,
                         scan_corner: PointBatch, scan_surf: PointBatch,
                         pose0: Pose, cfg: MappingConfig,
                         query_fn=None, query2_fn=None,
-                        query_pair_fn=None,
-                        corner_groups=None, surf_groups=None
-                        ) -> MappingResult:
+                        query_pair_fn=None) -> MappingResult:
     """Unjitted matcher core; ``query_fn``/``query2_fn`` swap the kNN
-    backend (the sharded pipeline passes the multi-device queries);
-    ``corner_groups``/``surf_groups`` (voxel_map.QueryGroups) enable the
-    grouped two-level gather on the fused candidate-cache path."""
+    backend (the sharded pipeline passes the multi-device queries)."""
     pose = pose0
     n_edge = jnp.float32(0.0)
     n_plane = jnp.float32(0.0)
@@ -298,9 +201,7 @@ def match_scan2map_core(corner_map: VoxelHashMap, surf_map: VoxelHashMap,
             and query2_fn is None and query_pair_fn is None:
         cache = _CandidateCache(corner_map, surf_map, scan_corner, scan_surf,
                                 pose.apply(scan_corner.xyz),
-                                pose.apply(scan_surf.xyz), cfg=cfg,
-                                corner_groups=corner_groups,
-                                surf_groups=surf_groups)
+                                pose.apply(scan_surf.xyz))
 
     for _ in range(cfg.outer_rounds):
         if cache is not None:
@@ -340,14 +241,10 @@ def match_scan2map_deskew(corner_map: VoxelHashMap, surf_map: VoxelHashMap,
                           scan_corner: PointBatch, scan_surf: PointBatch,
                           pose0: Pose, velocity0: Array, gravity: Array,
                           corner_dk: icp.DeskewTerms, surf_dk: icp.DeskewTerms,
-                          cfg: MappingConfig,
-                          corner_groups=None, surf_groups=None
-                          ) -> MappingResult:
+                          cfg: MappingConfig) -> MappingResult:
     return match_scan2map_deskew_core(corner_map, surf_map, scan_corner,
                                       scan_surf, pose0, velocity0, gravity,
-                                      corner_dk, surf_dk, cfg,
-                                      corner_groups=corner_groups,
-                                      surf_groups=surf_groups)
+                                      corner_dk, surf_dk, cfg)
 
 
 def match_scan2map_deskew_core(corner_map, surf_map,
@@ -357,9 +254,7 @@ def match_scan2map_deskew_core(corner_map, surf_map,
                                surf_dk: icp.DeskewTerms,
                                cfg: MappingConfig,
                                query_fn=None, query2_fn=None,
-                               query_pair_fn=None,
-                               corner_groups=None, surf_groups=None
-                               ) -> MappingResult:
+                               query_pair_fn=None) -> MappingResult:
     """Tightly-coupled scan-to-map GN over [pose, velocity] with per-point
     IMU deskew terms (mapping_scan_matcher.cc:109-246 initialized branch).
 
@@ -393,8 +288,7 @@ def match_scan2map_deskew_core(corner_map, surf_map,
         cache = _CandidateCache(
             corner_map, surf_map, scan_corner, scan_surf,
             deskewed_world(scan_corner, corner_dk, pose, vel),
-            deskewed_world(scan_surf, surf_dk, pose, vel), cfg=cfg,
-            corner_groups=corner_groups, surf_groups=surf_groups)
+            deskewed_world(scan_surf, surf_dk, pose, vel))
 
     for _ in range(cfg.outer_rounds):
         cw = deskewed_world(scan_corner, corner_dk, pose, vel)
@@ -438,15 +332,11 @@ def match_scan2map_tight(corner_map: VoxelHashMap, surf_map: VoxelHashMap,
                          pose0: Pose, velocity0: Array, gravity: Array,
                          corner_dk: icp.DeskewTerms, surf_dk: icp.DeskewTerms,
                          pre_pair, prev_state, cfg: MappingConfig,
-                         imu_weight: float = 1.0,
-                         corner_groups=None, surf_groups=None
-                         ) -> MappingResult:
+                         imu_weight: float = 1.0) -> MappingResult:
     return match_scan2map_tight_core(corner_map, surf_map, scan_corner,
                                      scan_surf, pose0, velocity0, gravity,
                                      corner_dk, surf_dk, pre_pair, prev_state,
-                                     cfg, imu_weight,
-                                     corner_groups=corner_groups,
-                                     surf_groups=surf_groups)
+                                     cfg, imu_weight)
 
 
 def match_scan2map_tight_core(corner_map, surf_map,
@@ -457,9 +347,7 @@ def match_scan2map_tight_core(corner_map, surf_map,
                               pre_pair, prev_state, cfg: MappingConfig,
                               imu_weight: float = 1.0,
                               query_fn=None, query2_fn=None,
-                              query_pair_fn=None,
-                              corner_groups=None, surf_groups=None
-                              ) -> MappingResult:
+                              query_pair_fn=None) -> MappingResult:
     """Tightly-coupled scan-to-map GN with the IMU preintegration factor IN
     the solve and velocity FREE.
 
@@ -483,10 +371,8 @@ def match_scan2map_tight_core(corner_map, surf_map,
     n_plane = jnp.float32(0.0)
     cost = jnp.float32(0.0)
     # hoisted: depends only on the window, not the GN state — inside the
-    # scan it would re-run the 15x15 inverse+Cholesky every iteration.
-    # r5: the WHOLE state_j-independent half of the factor hoists
-    # (imu_factor_prep) — the in-solve relinearization was 0.59 ms/frame
-    # of small-op latency (scripts/profile_lio_ablate.py)
+    # scan it would re-run the 15x15 inverse+Cholesky every iteration; the
+    # WHOLE state_j-independent half of the factor hoists (imu_factor_prep)
     sq_info = sqrt_information(pre_pair)
     imu_prep = imu_factor_mod.imu_factor_prep(pre_pair, prev_state,
                                               gravity, sqrt_info=sq_info)
@@ -506,8 +392,7 @@ def match_scan2map_tight_core(corner_map, surf_map,
         cache = _CandidateCache(
             corner_map, surf_map, scan_corner, scan_surf,
             deskewed_world(scan_corner, corner_dk, pose, vel),
-            deskewed_world(scan_surf, surf_dk, pose, vel), cfg=cfg,
-            corner_groups=corner_groups, surf_groups=surf_groups)
+            deskewed_world(scan_surf, surf_dk, pose, vel))
 
     for _ in range(cfg.outer_rounds):
         cw = deskewed_world(scan_corner, corner_dk, pose, vel)

@@ -1,9 +1,9 @@
 """Scan-to-scan odometry matching (the LOAM frontend).
 
-TPU-native redesign of ``OdometryScanMatcher::MatchScan2Scan``
+Batched redesign of ``OdometryScanMatcher::MatchScan2Scan``
 (``/root/reference/src/slam/local/scan_matching/odometry_scan_matcher.cc:43-285``):
 the per-point KD-tree + ring-window searches become one exact (N, M)
-distance matrix (a single MXU matmul) with ring-masked argmins — the
+distance matrix (a single f32 matmul) with ring-masked argmins — the
 different-ring/same-ring candidate rules applied over ALL reference points,
 exactly like the reference's ordered scan-line walk — and the 2x(6-iter)
 Ceres schedule becomes 2 re-association rounds around a 6-iteration batched
@@ -37,7 +37,9 @@ Array = jax.Array
 def _corr_d2(q_world: Array, query_mask: Array, ref: PointBatch) -> Array:
     """Exact (N, M) squared query-to-reference distances; invalid pairs +inf.
 
-    One (N,3)x(3,M) matmul plus rank-1 norms — MXU work, no top-k cap.
+    One (N,3)x(3,M) matmul plus rank-1 norms, no top-k cap. The matmul must
+    run at f32 precision (core.precision): with reduced-precision inputs
+    the expansion flips picks between near-equidistant candidates.
     A capped kNN is NOT equivalent here: on surfaces grazed along the ring
     (floor/ceiling) same-ring neighbors are ~2-3 cm apart while the nearest
     different-ring point is ~1 m away, so any small-K candidate list fills
@@ -67,41 +69,21 @@ class PlaneCorrespondences(NamedTuple):
     valid: Array
 
 
-def use_fused_corr(cfg: OdometryConfig) -> bool:
-    """Resolve the fused_corr tri-state (Pallas kernel on TPU by default;
-    the XLA reductions stay the reference implementation / CPU path)."""
-    if cfg.fused_corr == "on":
-        return True
-    if cfg.fused_corr == "off":
-        return False
-    return jax.default_backend() == "tpu"
-
-
 def find_edge_correspondences(query: PointBatch, ref: PointBatch, pose: Pose,
                               cfg: OdometryConfig,
                               gate_scale: float = 1.0) -> EdgeCorrespondences:
     q_world = pose.apply(query.xyz)
 
-    if use_fused_corr(cfg):
-        from msf_loam_tpu.ops.odo_corr import odo_corr_pallas
+    d2 = _corr_d2(q_world, query.mask, ref)                      # (N, M)
+    a_sel = jnp.argmin(d2, axis=1)
+    a_ok = (jnp.min(d2, axis=1) < cfg.dist_sq_threshold) & query.mask
+    ring_a = ref.ring[a_sel]
 
-        oc = odo_corr_pallas(q_world, ref.masked_xyz(), ref.mask, ref.ring,
-                             K=0, nearby=cfg.nearby_scan)
-        a_sel = oc.a_idx
-        a_ok = (oc.a_d2 < cfg.dist_sq_threshold) & query.mask
-        b_sel = oc.c_idx
-        b_ok = oc.c_d2 < cfg.dist_sq_threshold
-    else:
-        d2 = _corr_d2(q_world, query.mask, ref)                  # (N, M)
-        a_sel = jnp.argmin(d2, axis=1)
-        a_ok = (jnp.min(d2, axis=1) < cfg.dist_sq_threshold) & query.mask
-        ring_a = ref.ring[a_sel]
-
-        # b: nearest on a different, nearby ring (exact over all of ref)
-        dr = jnp.abs(ref.ring[None, :] - ring_a[:, None]).astype(jnp.float32)
-        b_d2 = jnp.where((dr > 0) & (dr <= cfg.nearby_scan), d2, jnp.inf)
-        b_sel = jnp.argmin(b_d2, axis=1)
-        b_ok = jnp.min(b_d2, axis=1) < cfg.dist_sq_threshold
+    # b: nearest on a different, nearby ring (exact over all of ref)
+    dr = jnp.abs(ref.ring[None, :] - ring_a[:, None]).astype(jnp.float32)
+    b_d2 = jnp.where((dr > 0) & (dr <= cfg.nearby_scan), d2, jnp.inf)
+    b_sel = jnp.argmin(b_d2, axis=1)
+    b_ok = jnp.min(b_d2, axis=1) < cfg.dist_sq_threshold
 
     a_xyz = ref.xyz[a_sel]
     b_xyz = ref.xyz[b_sel]
@@ -177,51 +159,31 @@ def find_plane_correspondences_fit(query: PointBatch, ref: PointBatch,
     q_world = pose.apply(query.xyz)
     K = 16
 
-    if use_fused_corr(cfg):
-        # fused reductions: a / different-ring c / K binned candidate
-        # minima in ONE VMEM pass — the (N, M) matrix never lands in HBM
-        # (ops/odo_corr.py). The bin pool has the same recall character
-        # as approx_min_k (one survivor per contiguous bin).
-        from msf_loam_tpu.ops.odo_corr import odo_corr_pallas
+    d2 = _corr_d2(q_world, query.mask, ref)                      # (N, M)
+    a_min = jnp.min(d2, axis=1)
+    a_sel = jnp.argmin(d2, axis=1)
+    a_ok = (a_min < cfg.dist_sq_threshold) & query.mask
+    ring_a = ref.ring[a_sel]
+    dr = jnp.abs(ref.ring[None, :] - ring_a[:, None]).astype(jnp.float32)
+    diff_ring = (dr > 0) & (dr <= cfg.nearby_scan)
 
-        oc = odo_corr_pallas(q_world, ref.masked_xyz(), ref.mask, ref.ring,
-                             K=K, nearby=cfg.nearby_scan)
-        a_sel = oc.a_idx
-        a_ok = (oc.a_d2 < cfg.dist_sq_threshold) & query.mask
-        ring_a = oc.a_ring                 # kernel-emitted, no ref gather
-        c_sel = oc.c_idx
-        c_ok = oc.c_d2 < cfg.dist_sq_threshold
-        cand_d2, cand_idx = oc.cand_d2, oc.cand_idx
-        ring_cand = oc.cand_ring           # kernel-emitted, no 24k gather
-    else:
-        d2 = _corr_d2(q_world, query.mask, ref)                  # (N, M)
-        a_min = jnp.min(d2, axis=1)
-        a_sel = jnp.argmin(d2, axis=1)
-        a_ok = (a_min < cfg.dist_sq_threshold) & query.mask
-        ring_a = ref.ring[a_sel]
-        dr = jnp.abs(ref.ring[None, :] - ring_a[:, None]).astype(jnp.float32)
-        diff_ring = (dr > 0) & (dr <= cfg.nearby_scan)
+    # c: nearest DIFFERENT-ring point, exact over the full row. This is
+    # the completeness guarantee a small candidate list cannot give: on
+    # surfaces grazed along the ring the K nearest are ALL same-ring
+    # (voxel-leaf spacing ~0.2 m vs multi-meter ring spacing at range) and
+    # the cross-ring span — the only z-observability on far ground — never
+    # surfaces (same lesson as the edge b-search, _corr_d2 docstring).
+    c_d2 = jnp.where(diff_ring, d2, jnp.inf)
+    c_min = jnp.min(c_d2, axis=1)
+    c_sel = jnp.argmin(c_d2, axis=1)
+    c_ok = c_min < cfg.dist_sq_threshold
 
-        # c: nearest DIFFERENT-ring point, exact over the full row. This
-        # is the completeness guarantee a small candidate list cannot
-        # give: on surfaces grazed along the ring the K nearest are ALL
-        # same-ring (voxel-leaf spacing ~0.2 m vs multi-meter ring spacing
-        # at range) and the cross-ring span — the only z-observability on
-        # far ground — never surfaces (same lesson as the edge b-search,
-        # _corr_d2 docstring).
-        c_d2 = jnp.where(diff_ring, d2, jnp.inf)
-        c_min = jnp.min(c_d2, axis=1)
-        c_sel = jnp.argmin(c_d2, axis=1)
-        c_ok = c_min < cfg.dist_sq_threshold
-
-        # everything else selects from ONE K-candidate pass. Exact masked
-        # top_k over the (N, M) row costs ~4 ms/call on TPU (sort-based);
-        # the measured fused-loop cost of three of them was 13 ms/scan —
-        # 67% of the batched frame. approx_min_k is the TPU-native binned
-        # reduction (recall ~0.95 at K=16; a missed candidate only narrows
-        # a plane support by one point).
-        cand_d2, cand_idx = jax.lax.approx_min_k(d2, K)          # (N, K)
-        ring_cand = ref.ring[cand_idx]
+    # everything else selects from ONE K-candidate pass instead of one
+    # masked top_k per support class. approx_min_k lowers to an exact
+    # top-k on the GPU and the CPU; a binned backend could miss a
+    # candidate, which only narrows a plane support by one point.
+    cand_d2, cand_idx = jax.lax.approx_min_k(d2, K)              # (N, K)
+    ring_cand = ref.ring[cand_idx]
     cand_ok = cand_d2 < cfg.dist_sq_threshold
     is_a = cand_idx == a_sel[:, None]
     same_c = (ring_cand == ring_a[:, None]) & ~is_a & cand_ok
@@ -250,25 +212,7 @@ def find_plane_correspondences_fit(query: PointBatch, ref: PointBatch,
     from msf_loam_tpu.ops import fitting
 
     neighbors = ref.xyz[sup_idx]                                 # (N, 5, 3)
-    if use_fused_corr(cfg):
-        # the XLA eigh3x3 chain over (N, S, 3) supports is ~100 small
-        # dependent ops (~0.35 ms/round at 64-ring — measured r4); the
-        # select_fit kernel runs the SAME TLS fit in-register. Invalid
-        # supports take the 1e9 positional sentinel; radius 1e17 keeps
-        # every real support (d2 < km^2) and rejects sentinels (d2~3e18);
-        # min_count = S reproduces fit_planes' all-slots-valid gate.
-        from msf_loam_tpu.ops.select_fit import select_fit_pallas
-
-        S = sup_idx.shape[1]
-        cand = jnp.where(sup_ok[:, :, None], neighbors, 1e9)
-        fs = select_fit_pallas(
-            jnp.transpose(cand, (2, 0, 1)), q_world,
-            jnp.float32(1e17), jnp.float32(1e17), k=S, mode="plane",
-            min_count=S, tol=cfg.plane_fit_tol)
-        fit = fitting.PlaneFit(center=fs.center, normal=fs.normal,
-                               valid=fs.valid)
-    else:
-        fit = fitting.fit_planes(neighbors, sup_ok, cfg.plane_fit_tol)
+    fit = fitting.fit_planes(neighbors, sup_ok, cfg.plane_fit_tol)
     valid = a_ok & fit.valid
     if cfg.corr_max_resid > 0:
         # residual gate at the live estimate: newly-REVEALED surface points
@@ -323,13 +267,6 @@ def match_clouds(ref_corner: PointBatch, ref_surf: PointBatch,
     iteration on the deskew), while the reference scan reprojects once
     with the warm-start step (the best estimate of ITS within-scan
     motion under constant velocity). The estimated transform is then the
-    With ``cfg.deskew`` (the A-LOAM DISTORTION=1 TransformToStart the
-    reference ships disabled): both scans are motion-distorted; per
-    re-association round the CURRENT scan's features reproject to its
-    scan start with the LIVE pose estimate (refreshed each round — Picard
-    iteration on the deskew), while the reference scan reprojects once
-    with the warm-start step (the best estimate of ITS within-scan
-    motion under constant velocity). The estimated transform is then the
     true scan-start-to-scan-start step rather than the effective-center
     displacement rigid matching recovers."""
     if cfg.deskew:
@@ -353,12 +290,13 @@ def match_clouds(ref_corner: PointBatch, ref_surf: PointBatch,
         if cfg.deskew:
             q_corner = undistort_from_motion(q_corner, pose, cfg.scan_period)
             q_surf = undistort_from_motion(q_surf, pose, cfg.scan_period)
-        edges = find_edge_correspondences(q_corner, ref_corner, pose, cfg,
-                                          gate_scale)
-        find_planes = (find_plane_correspondences_fit
-                       if cfg.plane_corr == "fit"
-                       else find_plane_correspondences)
-        planes = find_planes(q_surf, ref_surf, pose, cfg, gate_scale)
+        with jax.named_scope("odo_correspondences"):
+            edges = find_edge_correspondences(q_corner, ref_corner, pose,
+                                              cfg, gate_scale)
+            find_planes = (find_plane_correspondences_fit
+                           if cfg.plane_corr == "fit"
+                           else find_plane_correspondences)
+            planes = find_planes(q_surf, ref_surf, pose, cfg, gate_scale)
         n_corr = (jnp.sum(edges.valid.astype(jnp.float32))
                   + jnp.sum(planes.valid.astype(jnp.float32)))
         if axis_name is not None:

@@ -5,7 +5,7 @@ Host-side orchestration of the jitted stages, mirroring the reference's
 (``laser_mapping.cc:138-258``) including the odom->map transform
 bookkeeping (``TransformAssociateToMap``/``TransformUpdate``,
 ``laser_mapping.h:55-61``). Where the reference pipelines odometry and
-mapping across two threads with a queue, the TPU build runs them as
+mapping across two threads with a queue, this build runs them as
 sequential device programs per frame (the queue becomes program order; the
 real-time drop policy is handled by the caller).
 
@@ -25,6 +25,7 @@ import numpy as np
 
 from msf_loam_tpu.config import MsfLoamConfig
 from msf_loam_tpu.core.pointcloud import PointBatch, ScanFeatures
+from msf_loam_tpu.core.precision import f32_matmuls
 from msf_loam_tpu.core.se3 import Pose
 from msf_loam_tpu.core.timing import StageTimers
 from msf_loam_tpu.imu import deskew as deskew_mod
@@ -32,9 +33,7 @@ from msf_loam_tpu.imu import gravity_init
 from msf_loam_tpu.imu import imu_factor as imu_factor_mod
 from msf_loam_tpu.imu import preintegration as preint_mod
 from msf_loam_tpu.imu.buffer import ImuBuffer
-from msf_loam_tpu.ops.voxel import (voxel_downsample_compact_idx,
-                                    voxel_downsample_grouped_idx,
-                                    voxel_downsample_masked)
+from msf_loam_tpu.ops.voxel import voxel_downsample_compact_idx
 from msf_loam_tpu.slam import mapping, odometry, voxel_map
 
 Array = jax.Array
@@ -46,13 +45,10 @@ def downsample_features(pb: PointBatch, leaf: float, capacity: int) -> PointBatc
     (FilterLessFlatLessCornerFeature, laser_mapping.cc:340-364).
 
     The budget never exceeds the input capacity — a padded-out query set
-    makes the map gather do work for masked rows (measured waste).
-    Dedup + compaction in ONE sort pass (voxel_downsample_compact_idx);
-    the earlier two-sort form (voxel_downsample_masked + argsort over
-    ~keep) did the same selection with a second full-length sort, and a
-    cumsum+scatter variant measured SLOWER still (112.6 -> 94.3 scans/s).
-    Output rows land in voxel-key order rather than scan order — matching
-    is order-invariant (every consumer gates on ``mask``)."""
+    makes the map gather do work for masked rows. Dedup + compaction in
+    ONE sort pass (voxel_downsample_compact_idx). Output rows land in
+    voxel-key order rather than scan order — matching is order-invariant
+    (every consumer gates on ``mask``)."""
     capacity = min(capacity, pb.xyz.shape[0])
     idx, valid = voxel_downsample_compact_idx(pb.xyz, pb.mask, leaf,
                                               capacity)
@@ -60,27 +56,6 @@ def downsample_features(pb: PointBatch, leaf: float, capacity: int) -> PointBatc
         xyz=pb.xyz[idx], rel_time=pb.rel_time[idx],
         ring=pb.ring[idx], mask=valid,
     )
-
-
-def downsample_features_grouped(pb: PointBatch, leaf: float, capacity: int,
-                                key_world: Array, cell_size: float,
-                                group_budget: int):
-    """``downsample_features`` whose output is additionally GROUPED by map
-    octant base cell, enabling the two-level gather (voxel_map.
-    gather_candidates_planar_grouped). ``key_world`` gives each INPUT
-    point's world-frame position at the matcher's query transform (same
-    per-point math the candidate cache will apply to the compacted batch,
-    so group cells match gather cells bitwise). Costs the same single
-    sort as ``downsample_features`` — the grouping rides the sort key.
-
-    Returns ``(PointBatch, voxel_map.QueryGroups)``."""
-    capacity = min(capacity, pb.xyz.shape[0])
-    idx, valid, gid, rep_pos = voxel_downsample_grouped_idx(
-        pb.xyz, pb.mask, leaf, capacity, key_world, cell_size, group_budget)
-    return PointBatch(
-        xyz=pb.xyz[idx], rel_time=pb.rel_time[idx],
-        ring=pb.ring[idx], mask=valid,
-    ), voxel_map.QueryGroups(gid=gid, rep_pos=rep_pos)
 
 
 def pose_is_finite(pose: Pose):
@@ -132,12 +107,12 @@ def fused_frame_step(cfg: MsfLoamConfig, corner_map, surf_map,
                      is_first):
     """The whole lidar-only frame as ONE device program (odometry GN +
     downsample + scan-to-map GN + map insert). The host pipeline issues a
-    single dispatch per frame — on a remote-TPU link this is the difference
-    between wire-latency-bound and compute-bound operation."""
+    single dispatch per frame."""
     return _frame_core(cfg, corner_map, surf_map, prev_scan, scan,
                        pose_c2l, pose_odom, pose_o2m, is_first)
 
 
+@f32_matmuls
 def _frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
                 prev_scan: ScanFeatures, scan: ScanFeatures,
                 pose_c2l: Pose, pose_odom: Pose, pose_o2m: Pose, is_first,
@@ -165,35 +140,11 @@ def _frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
     pose_odom = pose_odom.compose(step_pose)
 
     guess = pose_o2m.compose(pose_odom)
-    grouped = (mapping_mod.use_grouped_gather(mc) and mc.reuse_candidates
-               and query_fn is None and query2_fn is None
-               and query_pair_fn is None)
-    if grouped:
-        # grouping keys = each point's world position at the matcher's
-        # query transform (post motion-deskew), so group base cells match
-        # the candidate cache's gather cells bitwise
-        def _key_world(pb: PointBatch) -> Array:
-            if oc.motion_deskew:
-                pb = deskew_mod.undistort_from_motion(
-                    pb, step_pose, cfg.features.scan_period)
-            return guess.apply(pb.xyz)
-
-        corner_ds, corner_groups = downsample_features_grouped(
-            scan.corner_less_sharp, mc.line_resolution,
-            mc.corner_query_points, _key_world(scan.corner_less_sharp),
-            mc.map_cell_size, mc.gather_groups)
-        surf_ds, surf_groups = downsample_features_grouped(
-            scan.surf_less_flat, mc.plane_resolution, mc.max_query_points,
-            _key_world(scan.surf_less_flat), mc.map_cell_size,
-            mc.gather_groups)
-    else:
-        corner_groups = surf_groups = None
-        corner_ds = downsample_features(scan.corner_less_sharp,
-                                        mc.line_resolution,
-                                        mc.corner_query_points)
-        surf_ds = downsample_features(scan.surf_less_flat,
-                                      mc.plane_resolution,
-                                      mc.max_query_points)
+    corner_ds = downsample_features(scan.corner_less_sharp,
+                                    mc.line_resolution,
+                                    mc.corner_query_points)
+    surf_ds = downsample_features(scan.surf_less_flat, mc.plane_resolution,
+                                  mc.max_query_points)
     if oc.motion_deskew:
         # constant-velocity reprojection to scan start, prior = the
         # in-frame scan-to-scan odometry step. Two properties matter
@@ -215,8 +166,7 @@ def _frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
     mres = mapping_mod.match_scan2map_core(
         corner_map, surf_map, corner_ds, surf_ds, guess, mc,
         query_fn=query_fn, query2_fn=query2_fn,
-        query_pair_fn=query_pair_fn,
-        corner_groups=corner_groups, surf_groups=surf_groups)
+        query_pair_fn=query_pair_fn)
     # watchdog: a non-finite solve (degenerate geometry) falls back to the
     # odometry guess instead of poisoning the map (the reference aborts on
     # CHECKs; a production pipeline must degrade instead — SURVEY.md §5)
@@ -263,6 +213,7 @@ def fused_lio_frame(cfg: MsfLoamConfig, corner_map, surf_map,
                           prev_p, prev_q, prev_v, gravity, ba=ba, bg=bg)
 
 
+@f32_matmuls
 def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
                    prev_scan: ScanFeatures, ring_image, scan_time,
                    pose_c2l: Pose, pose_odom: Pose, pose_o2m: Pose,
@@ -297,8 +248,6 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
     # Biases linearize the preintegration at the online estimate
     # (imu/bias_estimator.py) — rebuilt-from-raw-samples each frame, i.e.
     # repropagation at frame granularity (integration_base.cc:36-50).
-    # (Runs BEFORE the downsample since r5: the grouped two-level gather
-    # keys the query grouping on the IMU-deskewed world transform.)
     ba = jnp.zeros(3) if ba is None else ba
     bg = jnp.zeros(3) if bg is None else bg
     pre_pair = preint_mod.preintegrate(
@@ -310,39 +259,11 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
     pre_scan = preint_mod.preintegrate(
         scan_dts, scan_accs, scan_gyrs, scan_valid, ba, bg, ic)
 
-    grouped = (mapping.use_grouped_gather(mc) and mc.reuse_candidates
-               and query_fn is None and query2_fn is None
-               and query_pair_fn is None)
-    if grouped:
-        # grouping keys = deskewed world positions at the IMU-predicted
-        # state — the same per-point transform the tight/deskew candidate
-        # caches apply to the compacted batch (mapping.deskewed_world)
-        from msf_loam_tpu.core.se3 import quat_rotate, quat_to_matrix
-
-        def _key_world(pb: PointBatch) -> Array:
-            dk = deskew_mod.deskew_terms(pre_scan, pb.rel_time, gravity)
-            R = quat_to_matrix(pred.pose.q)
-            local = quat_rotate(dk.delta_q, pb.xyz) + dk.delta_p
-            dt = dk.dt[:, None]
-            return (local @ R.T + pred.v[None, :] * dt
-                    - 0.5 * gravity[None, :] * dt * dt + pred.pose.t)
-
-        corner_ds, corner_groups = downsample_features_grouped(
-            scan.corner_less_sharp, mc.line_resolution,
-            mc.corner_query_points, _key_world(scan.corner_less_sharp),
-            mc.map_cell_size, mc.gather_groups)
-        surf_ds, surf_groups = downsample_features_grouped(
-            scan.surf_less_flat, mc.plane_resolution, mc.max_query_points,
-            _key_world(scan.surf_less_flat), mc.map_cell_size,
-            mc.gather_groups)
-    else:
-        corner_groups = surf_groups = None
-        corner_ds = downsample_features(scan.corner_less_sharp,
-                                        mc.line_resolution,
-                                        mc.corner_query_points)
-        surf_ds = downsample_features(scan.surf_less_flat,
-                                      mc.plane_resolution,
-                                      mc.max_query_points)
+    corner_ds = downsample_features(scan.corner_less_sharp,
+                                    mc.line_resolution,
+                                    mc.corner_query_points)
+    surf_ds = downsample_features(scan.surf_less_flat, mc.plane_resolution,
+                                  mc.max_query_points)
 
     # per-point deskew terms for the compacted query batches
     corner_dk = deskew_mod.deskew_terms(pre_scan, corner_ds.rel_time, gravity)
@@ -354,15 +275,13 @@ def lio_frame_core(cfg: MsfLoamConfig, corner_map, surf_map,
             gravity, corner_dk, surf_dk, pre_pair, prev_state, mc,
             imu_weight=ic.imu_factor_weight,
             query_fn=query_fn, query2_fn=query2_fn,
-            query_pair_fn=query_pair_fn,
-            corner_groups=corner_groups, surf_groups=surf_groups)
+            query_pair_fn=query_pair_fn)
     else:
         mres = mapping.match_scan2map_deskew_core(
             corner_map, surf_map, corner_ds, surf_ds, pred.pose, pred.v,
             gravity, corner_dk, surf_dk, mc,
             query_fn=query_fn, query2_fn=query2_fn,
-            query_pair_fn=query_pair_fn,
-            corner_groups=corner_groups, surf_groups=surf_groups)
+            query_pair_fn=query_pair_fn)
     guess = pose_o2m.compose(pose_odom)
     # watchdog (SURVEY.md §5): a non-finite tight/deskew solve — NaN IMU
     # sample, degenerate map geometry — must not leak into the pose chain
@@ -554,6 +473,10 @@ class SlamPipeline:
             reject_frac=icfg.init_reject_frac)
 
     # ------------------------------------------------------------------
+    # process_scan / process_ring_image are the frame entry points: every
+    # program they trace and dispatch (including the pre-init modular path
+    # and the estimator solves) runs with f32 matmuls (core.precision)
+    @f32_matmuls
     def process_scan(self, scan: ScanFeatures) -> FrameResult:
         cfg = self.cfg
         scan_time = float(scan.time)
@@ -698,6 +621,7 @@ class SlamPipeline:
         return res
 
     # ------------------------------------------------------------------
+    @f32_matmuls
     def process_ring_image(self, ring_image, scan_time: float) -> FrameResult:
         """Raw RingImage -> one fused device dispatch per frame (feature
         extraction included). Initialized-LIO frames run the tightly-coupled

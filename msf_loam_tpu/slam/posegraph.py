@@ -1,6 +1,6 @@
 """GPS / odometry pose-graph fusion.
 
-TPU-native redesign of ``GpsFusion``
+Batched redesign of ``GpsFusion``
 (``/root/reference/src/slam/gps_fusion/gps_fusion.cc:27-97``) and its
 factors (``gps_factor.h:8-61``):
 
@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from msf_loam_tpu.config import PoseGraphConfig
+from msf_loam_tpu.core.precision import f32_matmuls
 from msf_loam_tpu.core.se3 import (Pose, quat_conjugate, quat_multiply,
                                    quat_normalize, quat_rotate)
 
@@ -129,21 +130,6 @@ def _gps_residual(delta_i: Array, delta_j: Array, pose_i: Pose, pose_j: Pose,
     return (t - gps) / st
 
 
-def _f32_matmuls(fn):
-    """Trace-time f32 matmul precision for the solver math.
-
-    On TPU, jax matmuls/einsums default to bf16 inputs; the pose-graph
-    normal equations and the block-Thomas / Woodbury chains are far too
-    ill-conditioned for that — measured on device: the loop-closure solve
-    that converges to 0.024 m ATE on CPU diverged to 3.5e6 m on TPU until
-    this pin (r4, scripts/golden_eval.py --only loop)."""
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with jax.default_matmul_precision("float32"):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
 class PoseGraphResult(NamedTuple):
     poses: Pose
     initial_cost: Array
@@ -151,7 +137,7 @@ class PoseGraphResult(NamedTuple):
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "n_iters"))
-@_f32_matmuls
+@f32_matmuls
 def optimize(poses0: Pose, data: PoseGraphData, cfg: PoseGraphConfig,
              n_iters: int = 10) -> PoseGraphResult:
     """Batch pose-graph GN with block-tridiagonal exact solve."""
@@ -221,7 +207,7 @@ def _assemble_chain(poses: Pose, data: PoseGraphData, cfg: PoseGraphConfig,
     solve in the same program, XLA's SPMD partitioner corrupts exactly the
     first row of every shard but the first (scripts/bisect_step4.py shows
     the pattern; scripts/xla_scatter_shardmap_repro.py documents the hunt).
-    The one-hot form is exact, partitions trivially, and rides the MXU.
+    The one-hot form is exact and partitions trivially.
     """
     pi = jax.tree.map(lambda a: a[:-1], poses)
     pj = jax.tree.map(lambda a: a[1:], poses)
@@ -274,7 +260,7 @@ def _assemble_chain(poses: Pose, data: PoseGraphData, cfg: PoseGraphConfig,
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "n_iters"))
-@_f32_matmuls
+@f32_matmuls
 def optimize_with_loops(poses0: Pose, data: PoseGraphData, loops: LoopFactors,
                         cfg: PoseGraphConfig, n_iters: int = 10
                         ) -> PoseGraphResult:
@@ -317,7 +303,7 @@ def _woodbury_solve(D: Array, U: Array, rhs: Array, W: Array) -> Array:
     return y - jnp.einsum("nim,m->ni", Z, jnp.linalg.solve(S, Wty))
 
 
-@_f32_matmuls
+@f32_matmuls
 def optimize_with_loops_distributed(mesh, poses0: Pose, data: PoseGraphData,
                                     loops: LoopFactors, cfg: PoseGraphConfig,
                                     n_iters: int = 10) -> PoseGraphResult:
@@ -377,7 +363,7 @@ def _optimize_loops_impl(poses0: Pose, data: PoseGraphData,
         # ``at[idx].add`` whose result feeds the shard_map solve in the
         # same program mispartitions silently (first row of every shard
         # corrupted — see _assemble_chain's docstring). The one-hot form
-        # is exact, tiny (L x N), and rides the MXU. Padded loops have
+        # is exact and tiny (L x N). Padded loops have
         # w = 0, so their one-hot rows contribute nothing.
         oh_i = jax.nn.one_hot(loops.idx_i, N, dtype=jnp.float32)  # (L, N)
         oh_j = jax.nn.one_hot(loops.idx_j, N, dtype=jnp.float32)
@@ -411,7 +397,7 @@ def _optimize_loops_impl(poses0: Pose, data: PoseGraphData,
     return PoseGraphResult(poses=poses, initial_cost=initial, final_cost=final)
 
 
-@_f32_matmuls
+@f32_matmuls
 def optimize_distributed(mesh, poses0: Pose, data: PoseGraphData,
                          cfg: PoseGraphConfig, n_iters: int = 10
                          ) -> PoseGraphResult:

@@ -1,7 +1,8 @@
 """Scan-context place recognition for loop-closure detection.
 
 The reference lists "Loop closure by scancontext" as an unimplemented TODO
-(``/root/reference/README.md:70-72``); this module implements it, TPU-style:
+(its ``README.md:70-72``); this module implements it as batched array
+work:
 
 * descriptor — the classic scan-context image: an (R rings x S sectors)
   polar grid around the sensor, each bin holding the max point height.
@@ -11,7 +12,7 @@ The reference lists "Loop closure by scancontext" as an unimplemented TODO
   permutes descriptor COLUMNS, so scoring all S cyclic shifts makes the
   match yaw-invariant, and the argmin shift is a yaw initial guess for the
   scan matcher. All N^2 x S comparisons are a couple of batched matmuls
-  (MXU work), not a loop.
+  (f32 matmuls), not a loop.
 
 Unlike position-proximity detection (loop_closure.detect_loops), this
 recognizes revisits by APPEARANCE, so it keeps working when odometry drift

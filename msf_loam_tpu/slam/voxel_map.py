@@ -1,6 +1,6 @@
 """Fixed-capacity spatial-hash voxel map.
 
-TPU-native replacement for the reference's Cartographer-style HybridGrid
+Batched replacement for the reference's Cartographer-style HybridGrid
 (``/root/reference/src/slam/map/hybrid_grid.cc:462-534``): per-cell point
 clouds, voxel-deduplicated on insert (the ``InsertScan`` re-filter at
 hybrid_grid.cc:503-521), queried by gathering a 27-cell neighborhood around
@@ -29,17 +29,15 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 Array = jax.Array
 
-# 27-neighborhood offsets, shaped (27, 3)
-_OFFSETS = jnp.stack(jnp.meshgrid(
-    jnp.arange(-1, 2), jnp.arange(-1, 2), jnp.arange(-1, 2),
-    indexing="ij"), axis=-1).reshape(-1, 3)
-
-_P1 = jnp.uint32(73856093)
-_P2 = jnp.uint32(19349663)
-_P3 = jnp.uint32(83492791)
+# Module constants are NumPy, not device arrays: importing this module must
+# not initialise a JAX backend (see ops/features.py).
+_P1 = np.uint32(73856093)
+_P2 = np.uint32(19349663)
+_P3 = np.uint32(83492791)
 
 
 def _hash_cells(cells: Array, table_size: int) -> Array:
@@ -70,10 +68,9 @@ class VoxelHashMap(NamedTuple):
 
 
 # Unoccupied slab entries hold this coordinate in every component — an
-# INVARIANT maintained by create_map/insert_at_slots/evict_far so the
-# planar gather for the fused selection kernel (ops.select_fit) needs no
-# occupancy mask: sentinel coords produce d2 ~ 3e18, outside every radius
-# gate. (3 * EMPTY_COORD^2 stays < f32 max.)
+# INVARIANT maintained by create_map/insert_at_slots/evict_far: a slab
+# entry past the count can never pass a radius gate (sentinel coords give
+# d2 ~ 3e18; 3 * EMPTY_COORD^2 stays < f32 max).
 EMPTY_COORD = 1.0e9
 
 
@@ -110,6 +107,7 @@ def insert(vmap: VoxelHashMap, xyz: Array, mask: Array,
     return insert_at_slots(vmap, xyz, mask, slot, centroid_updates)
 
 
+@jax.named_scope("map_insert")
 def insert_at_slots(vmap: VoxelHashMap, xyz: Array, mask: Array,
                     slot: Array, centroid_updates: bool = False,
                     leaf_salt: Array = None) -> VoxelHashMap:
@@ -241,9 +239,9 @@ def _leaf_key_dyn(xyz: Array, leaf: Array, origin: float = 8192.0) -> Array:
 
 
 # corner offsets of a 2x2x2 cell block, shaped (8, 3)
-_OFFSETS8 = jnp.stack(jnp.meshgrid(
-    jnp.arange(2), jnp.arange(2), jnp.arange(2),
-    indexing="ij"), axis=-1).reshape(-1, 3)
+_OFFSETS8 = np.stack(np.meshgrid(
+    np.arange(2), np.arange(2), np.arange(2),
+    indexing="ij"), axis=-1).reshape(-1, 3).astype(np.int32)
 
 
 def neighbor_cells8(q: Array, cell_size: Array) -> Array:
@@ -303,11 +301,10 @@ def gather_candidates(vmap: VoxelHashMap, query: Array, query_mask: Array
     """One 8-cell octant gather, selection deferred: (Q, 8P, 3) candidate
     coordinates + (Q, 8P) occupancy.
 
-    TPU gathers are row-latency-bound (~10 ns/row regardless of row size,
-    operand size, or layout — measured in scripts/bench_gather_layout.py),
-    so the scan-to-map matcher gathers ONCE per frame and re-runs only the
-    cheap distance/top-k selection (``select_knn`` / ``select_knn_2r``)
-    against the updated pose each re-association round. Coverage: complete
+    The gather is the costly half, so the scan-to-map matcher gathers ONCE
+    per frame and re-runs only the cheap distance/top-k selection
+    (``select_knn`` / ``select_knn_2r``) against the updated pose each
+    re-association round. Coverage: complete
     for any ball of radius <= cell_size/2 around the GATHER positions;
     with the default gate radius == cell_size/2 a pose update of d meters
     between rounds can only lose candidates in the outer d-shell of the
@@ -323,164 +320,6 @@ def gather_candidates(vmap: VoxelHashMap, query: Array, query_mask: Array
     occup = occup & query_mask[:, None, None]
     return (cand.reshape(q.shape[0], -1, 3),
             occup.reshape(q.shape[0], -1))
-
-
-def gather_candidates_planar(vmap: VoxelHashMap, query: Array,
-                             query_mask: Array) -> Array:
-    """One octant gather in PLANAR (3, Q, 8P) layout for the fused Pallas
-    selection+fit kernel (ops.select_fit). No occupancy mask travels with
-    the candidates: unoccupied slab entries hold EMPTY_COORD by table
-    invariant, which lands outside every radius gate. Masked QUERIES are
-    not filtered here either — their rows produce gated-off fits and every
-    caller ANDs the query mask into its validity gates. Same coverage
-    contract as ``gather_candidates``."""
-    H, P = vmap.table_size, vmap.slab_capacity
-    del query_mask  # folded into the callers' validity gates
-    q = query.astype(jnp.float32)
-    ncells = neighbor_cells8(q, vmap.cell_size)                  # (Q, 8, 3)
-    slots = _hash_cells(ncells, H)                               # (Q, 8)
-    tp = jnp.transpose(vmap.points, (2, 0, 1))                   # (3, H, P)
-    cand = tp[:, slots]                                          # (3, Q, 8, P)
-    return cand.reshape(3, q.shape[0], 8 * P)
-
-
-class QueryGroups(NamedTuple):
-    """Base-cell grouping of a query batch (ops.voxel.
-    voxel_downsample_grouped_idx): ascending per-query group ids and the
-    first query row of each group. Group ``len(rep_pos) - 1`` is the
-    overflow/invalid sentinel."""
-    gid: Array       # (Q,) int32
-    rep_pos: Array   # (G,) int32
-
-
-def gather_candidates_rows_grouped(vmap: VoxelHashMap, query: Array,
-                                   gid: Array, rep_pos: Array) -> Array:
-    """Two-level octant gather over base-cell GROUPED queries, in
-    planar-packed ROW layout (Q, 3*8P): row q = [x*8P | y*8P | z*8P],
-    EMPTY_COORD for invalid — the fused selection kernel's rows input
-    (ops.select_fit layout='rows'), at ~1/4 the HBM row fetches of the
-    one-level gather.
-
-    Queries sharing an octant base cell share all 8 hash slots, so the
-    slab gather runs once per GROUP (G*8 rows instead of Q*8 — measured
-    0.10 ms vs 0.41 ms net at Q=4096/G=1024 on v5e,
-    scripts/bench_gather_r5.py) and candidates re-expand per query with
-    a Q-row gather from the compact (G, 24P) buffer (measured 0.03 ms
-    net: row-gather cost scales with ROW COUNT, and Q rows from a small
-    resident operand are cheap — this is what makes the two-level form
-    win where the r4 XLA dedupe variants lost). An f32 one-hot MXU
-    expansion measured even cheaper (fully overlapped) but is only
-    bit-exact at Precision.HIGHEST; the gather is exact by construction.
-
-    Requires queries grouped by base cell (ops.voxel.
-    voxel_downsample_grouped_idx): ``gid (Q,)`` ascending group ids,
-    ``rep_pos (G,)`` the first query row of each group. Group
-    ``G - 1`` is the overflow/invalid sentinel — its candidates are
-    forced to EMPTY_COORD, so over-budget groups degrade to dropped
-    candidates rather than aliased ones (same philosophy as slab
-    overflow on insert). Bit-identical to the one-level gather for every
-    query whose group rank is below ``G - 1``
-    (tests/test_voxel_map.py::test_grouped_gather_bit_identical).
-
-    Replaces the same reference loop as ``gather_candidates``
-    (hybrid_grid.cc:470-501 surround lookup per point).
-    """
-    H, P = vmap.table_size, vmap.slab_capacity
-    Q = query.shape[0]
-    G = rep_pos.shape[0]
-    q = query.astype(jnp.float32)
-    rep_w = q[jnp.clip(rep_pos, 0, Q - 1)]                       # (G, 3)
-    ncells = neighbor_cells8(rep_w, vmap.cell_size)              # (G, 8, 3)
-    slots = _hash_cells(ncells, H)                               # (G, 8)
-    # gather whole slab ROWS from the bitcast (H, 3P) view — indexing the
-    # (H, P, 3) table directly makes XLA relayout-copy the full 12.6 MB
-    # table first (~53 us/frame/map, xprof r5); the flat view is a free
-    # bitcast and the row gather needs no relayout
-    grp = vmap.points.reshape(H, 3 * P)[slots]                   # (G,8,3P)
-    # planar within the group row: (G, 3, 8P) -> flatten to (G, 3*8P)
-    grp = grp.reshape(G, 8, P, 3)
-    grp_rows = jnp.transpose(grp, (0, 3, 1, 2)).reshape(G, 3 * 8 * P)
-    grp_rows = grp_rows.at[G - 1, :].set(EMPTY_COORD)            # sentinel
-    return grp_rows[jnp.clip(gid, 0, G - 1)]                     # (Q, 3*8P)
-
-
-def gather_candidates_planar_grouped(vmap: VoxelHashMap, query: Array,
-                                     gid: Array, rep_pos: Array) -> Array:
-    """``gather_candidates_rows_grouped`` rearranged to the legacy planar
-    (3, Q, 8P) contract (tests / planar consumers; the fused select path
-    consumes the rows form directly to skip this transpose)."""
-    P = vmap.slab_capacity
-    cand = gather_candidates_rows_grouped(vmap, query, gid, rep_pos)
-    return jnp.transpose(cand.reshape(query.shape[0], 3, 8 * P), (1, 0, 2))
-
-
-def _two_level_slots(slots_flat: Array, table_size: int, u_max: int
-                     ) -> Tuple[Array, Array]:
-    """Dedupe a flat slot-id vector for the two-level gather.
-
-    Returns ``(uslots (u_max,), remap (n,))`` with
-    ``uslots[remap[i]] == slots_flat[i]`` for every i whose slot id ranks
-    below ``u_max - 1`` among the uniques. Index ``u_max - 1`` is the
-    overflow sentinel — callers must make that compact row EMPTY_COORD so
-    overflowed candidates are dropped (graceful degradation, same
-    philosophy as slab overflow on insert) rather than aliased.
-
-    Sort-free: an argsort-based dedupe costs more than the one-level
-    gather it replaces (~0.6 ms for a 32k argsort, measured r4 —
-    scripts/bench_gather_2l.py), so uniques are ranked by a presence
-    scatter + exclusive prefix sum over the table axis instead.
-    """
-    h = table_size
-    flags = jnp.zeros((h,), jnp.int32).at[slots_flat].set(1)
-    rank = jnp.cumsum(flags) - flags                 # 0-based unique rank
-    si = u_max - 1
-    rank = jnp.minimum(rank, si)
-    # NOTE (ADVICE r4): compact rows between the frame's unique-slot count
-    # and u_max-2 keep this zero init, so the compact gather redundantly
-    # fetches slot 0's slab for them — harmless for correctness, and it
-    # PADS the measured two-level cost at large u_max; the r4 rejection
-    # also held at u_max=1024 where the padding is minimal.
-    uslots = jnp.zeros((u_max,), jnp.int32).at[
-        jnp.where(flags == 1, rank, u_max)].set(
-        jnp.arange(h, dtype=jnp.int32), mode="drop")
-    remap = rank[slots_flat]
-    return uslots, remap
-
-
-@functools.partial(jax.jit, static_argnames=("u_max",))
-def gather_candidates_planar_2l(vmap: VoxelHashMap, query: Array,
-                                query_mask: Array, u_max: int = 2048
-                                ) -> Array:
-    """Two-level octant gather, same contract as gather_candidates_planar.
-
-    The Q*8 octant slot fetches of a spatially-clustered query set touch
-    far fewer UNIQUE table slots (~880 of 32768 for surface-clustered
-    queries, measured r4), so the big-table gather is split: (1) dedupe
-    slot ids and fetch each unique slab ONCE from the (3, H, P) table,
-    (2) re-expand per-query candidates from the compact (3, u_max, P)
-    buffer. Bit-identical to the one-level gather whenever the frame
-    touches <= u_max - 1 unique slots (overflow drops candidates via the
-    EMPTY_COORD sentinel row instead of aliasing them).
-
-    MEASURED AND REJECTED as an XLA-level program (r4, scripts/
-    bench_gather_2l.py on real TPU): 1.13-1.22 ms vs 0.69 ms one-level at
-    Q=4096 — every 32k-element dedupe primitive (scatter ~0.34 ms, 1-D
-    cumsum ~0.35 ms, argsort ~0.6 ms) costs as much as the whole gather
-    it replaces, independent of the dedupe algorithm. Kept (off by
-    default, config.gather_two_level) as groundwork for an in-kernel
-    variant where the dedupe amortizes into the selection kernel's pass.
-    """
-    H, P = vmap.table_size, vmap.slab_capacity
-    del query_mask  # same contract as gather_candidates_planar
-    q = query.astype(jnp.float32)
-    ncells = neighbor_cells8(q, vmap.cell_size)                  # (Q, 8, 3)
-    slots = _hash_cells(ncells, H)                               # (Q, 8)
-    uslots, remap = _two_level_slots(slots.reshape(-1), H, u_max)
-    tp = jnp.transpose(vmap.points, (2, 0, 1))                   # (3, H, P)
-    compact = tp[:, uslots]                                      # (3, U, P)
-    compact = compact.at[:, u_max - 1, :].set(EMPTY_COORD)
-    cand = compact[:, remap]                                     # (3, Q*8, P)
-    return cand.reshape(3, q.shape[0], 8 * P)
 
 
 @functools.partial(jax.jit, static_argnames=("k",))
@@ -509,7 +348,7 @@ def select_knn_wide_mask(cand: Array, cand_valid: Array, query: Array,
     """Strict top-k plus the wide in-radius MASK over the candidates, one
     distance pass. The mask form feeds the moments-based fallback plane
     fit (fitting.fit_planes_two_scale_masked) without a second top-k or
-    its row-latency-bound take_along_axis gather."""
+    its take_along_axis gather."""
     q = query.astype(jnp.float32)
     diff = cand - q[:, None, :]
     d2 = jnp.sum(diff * diff, axis=-1)
@@ -533,11 +372,9 @@ def select_knn_weights(cand: Array, cand_valid: Array, query: Array,
     candidates (measure-zero with leaf-deduped float32 maps; fits are
     unaffected).
 
-    Implementation notes (xprof-measured): the weights are float32, not
-    bool — TPU pred arrays tile as (8,128)(4,1) and their cross-fusion
-    copies cost ~300 us each at this shape; and the k smallest distances
-    come from k sequential masked mins (values only), not a sort-based
-    lax.top_k — no index operand, ~2x cheaper at C=256."""
+    The k smallest distances come from k sequential masked mins (values
+    only) rather than a sort-based lax.top_k, so no index operand is
+    carried."""
     q = query.astype(jnp.float32)
     diff = cand - q[..., None, :]
     d2 = jnp.sum(diff * diff, axis=-1)

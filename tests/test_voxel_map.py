@@ -190,7 +190,7 @@ def test_query_knn_2r_strict_matches_query_knn_and_wide_superset():
 
 def test_empty_coord_tail_invariant():
     """Unoccupied slab entries hold EMPTY_COORD through create/insert/evict
-    (the planar gather for the fused selection kernel relies on it)."""
+    (a slab entry past the count can then never pass a radius gate)."""
     import numpy as np
 
     from msf_loam_tpu.slam.voxel_map import (EMPTY_COORD, create_map,
@@ -213,169 +213,3 @@ def test_empty_coord_tail_invariant():
         m = evict_far(m, jnp.zeros(3), radius=18.0)
         check(m)
     assert int(m.total_points()) > 0
-
-
-def test_gather_planar_matches_dense():
-    """gather_candidates_planar == gather_candidates with the sentinel
-    encoding (same slots, same occupancy semantics)."""
-    import numpy as np
-
-    from msf_loam_tpu.slam.voxel_map import (EMPTY_COORD, create_map,
-                                             gather_candidates,
-                                             gather_candidates_planar, insert)
-
-    rng = np.random.default_rng(1)
-    m = create_map(512, 8, 2.0, 0.4)
-    pts = jnp.asarray(rng.uniform(-20, 20, (800, 3)).astype(np.float32))
-    m = insert(m, pts, jnp.ones(800, bool))
-
-    q = jnp.asarray(rng.uniform(-20, 20, (64, 3)).astype(np.float32))
-    qmask = jnp.ones(64, bool)
-    cand, valid = gather_candidates(m, q, qmask)
-    planar = gather_candidates_planar(m, q, qmask)
-    dense_from_planar = jnp.transpose(planar, (1, 2, 0))   # (Q, 8P, 3)
-    got_valid = np.asarray(dense_from_planar[..., 0]) < EMPTY_COORD * 0.5
-    assert np.array_equal(got_valid, np.asarray(valid))
-    np.testing.assert_array_equal(
-        np.asarray(dense_from_planar)[np.asarray(valid)],
-        np.asarray(cand)[np.asarray(valid)])
-
-
-def test_gather_planar_2l_bit_identical():
-    """Two-level gather == one-level planar gather (bit-exact) when the
-    unique-slot count fits the compact budget."""
-    import numpy as np
-
-    from msf_loam_tpu.slam.voxel_map import (create_map,
-                                             gather_candidates_planar,
-                                             gather_candidates_planar_2l,
-                                             insert)
-
-    rng = np.random.default_rng(3)
-    m = create_map(1 << 12, 8, 2.0, 0.4)
-    pts = jnp.asarray(rng.uniform(-30, 30, (4000, 3)).astype(np.float32))
-    m = insert(m, pts, jnp.ones(4000, bool))
-
-    q = jnp.asarray(rng.uniform(-30, 30, (256, 3)).astype(np.float32))
-    qmask = jnp.ones(256, bool)
-    one = gather_candidates_planar(m, q, qmask)
-    two = gather_candidates_planar_2l(m, q, qmask, u_max=2048)
-    np.testing.assert_array_equal(np.asarray(one), np.asarray(two))
-
-
-def test_gather_planar_2l_overflow_drops_not_aliases():
-    """When unique slots exceed u_max - 1, overflowed candidates become
-    EMPTY_COORD (dropped) — never another cell's points."""
-    import numpy as np
-
-    from msf_loam_tpu.slam.voxel_map import (EMPTY_COORD, create_map,
-                                             gather_candidates_planar,
-                                             gather_candidates_planar_2l,
-                                             insert)
-
-    rng = np.random.default_rng(4)
-    m = create_map(1 << 12, 8, 2.0, 0.4)
-    pts = jnp.asarray(rng.uniform(-40, 40, (6000, 3)).astype(np.float32))
-    m = insert(m, pts, jnp.ones(6000, bool))
-
-    q = jnp.asarray(rng.uniform(-40, 40, (512, 3)).astype(np.float32))
-    qmask = jnp.ones(512, bool)
-    one = np.asarray(gather_candidates_planar(m, q, qmask))
-    two = np.asarray(gather_candidates_planar_2l(m, q, qmask, u_max=64))
-    # every two-level entry is either the one-level value or the sentinel
-    dropped = two[0] >= EMPTY_COORD * 0.5
-    assert dropped.any()          # the tiny budget must actually overflow
-    # dropped entries carry the sentinel in ALL THREE coords (table
-    # invariant), everything else is bit-identical to the one-level gather
-    assert (two[:, dropped] >= EMPTY_COORD * 0.5).all()
-    same = (two == one).all(axis=0)
-    assert np.all(same | dropped)
-
-
-def test_grouped_gather_bit_identical():
-    """Grouped two-level gather == one-level planar gather (bit-exact) for
-    every valid query whose group fits the budget; overflow/invalid
-    queries see only the EMPTY_COORD sentinel."""
-    import numpy as np
-
-    from msf_loam_tpu.core.pointcloud import PointBatch
-    from msf_loam_tpu.core.se3 import Pose, quat_exp
-    from msf_loam_tpu.slam.pipeline import downsample_features_grouped
-    from msf_loam_tpu.slam.voxel_map import (EMPTY_COORD, create_map,
-                                             gather_candidates_planar,
-                                             gather_candidates_planar_grouped,
-                                             insert)
-
-    rng = np.random.default_rng(7)
-    # clustered points (scan-like): grouped gather targets spatial locality
-    centers = rng.uniform(-20, 20, size=(30, 3)).astype(np.float32)
-    pts = (centers[rng.integers(0, 30, 12000)]
-           + rng.normal(0, 1.0, (12000, 3))).astype(np.float32)
-    m = create_map(1 << 13, 16, 2.0, 0.4)
-    m = insert(m, jnp.asarray(pts), jnp.ones(len(pts), bool))
-
-    n = 6000
-    qpts = (centers[rng.integers(0, 30, n)]
-            + rng.normal(0, 1.0, (n, 3))).astype(np.float32)
-    mask = rng.random(n) < 0.9
-    pb = PointBatch(xyz=jnp.asarray(qpts), rel_time=jnp.zeros(n),
-                    ring=jnp.zeros(n, jnp.int32), mask=jnp.asarray(mask))
-    pose = Pose(t=jnp.asarray([0.3, -0.2, 0.1], jnp.float32),
-                q=quat_exp(jnp.asarray([0.02, 0.0, 0.05], jnp.float32)))
-    G = 1024
-    ds, groups = downsample_features_grouped(
-        pb, 0.4, 2048, pose.apply(pb.xyz), 2.0, G)
-    gid = np.asarray(groups.gid)
-    val = np.asarray(ds.mask)
-    assert (np.diff(gid[val]) >= 0).all()      # grouped order
-
-    qw = pose.apply(ds.xyz)
-    one = np.asarray(gather_candidates_planar(m, qw, ds.mask))
-    two = np.asarray(
-        gather_candidates_planar_grouped(m, qw, groups.gid, groups.rep_pos))
-    ok_rows = val & (gid < G - 1)
-    assert ok_rows.sum() > 1000
-    np.testing.assert_array_equal(two[:, ok_rows, :], one[:, ok_rows, :])
-    drop_rows = ~ok_rows
-    if drop_rows.any():
-        assert (two[:, drop_rows, :] >= EMPTY_COORD * 0.5).all()
-
-
-def test_grouped_gather_overflow_drops_not_aliases():
-    """A tiny group budget must drop candidates (sentinel), never alias
-    another group's slabs."""
-    import numpy as np
-
-    from msf_loam_tpu.core.pointcloud import PointBatch
-    from msf_loam_tpu.core.se3 import Pose
-    from msf_loam_tpu.slam.pipeline import downsample_features_grouped
-    from msf_loam_tpu.slam.voxel_map import (EMPTY_COORD, create_map,
-                                             gather_candidates_planar,
-                                             gather_candidates_planar_grouped,
-                                             insert)
-
-    rng = np.random.default_rng(8)
-    pts = rng.uniform(-30, 30, size=(8000, 3)).astype(np.float32)
-    m = create_map(1 << 12, 8, 2.0, 0.4)
-    m = insert(m, jnp.asarray(pts), jnp.ones(len(pts), bool))
-
-    n = 4096
-    qpts = rng.uniform(-30, 30, size=(n, 3)).astype(np.float32)
-    pb = PointBatch(xyz=jnp.asarray(qpts), rel_time=jnp.zeros(n),
-                    ring=jnp.zeros(n, jnp.int32), mask=jnp.ones(n, bool))
-    pose = Pose.identity()
-    G = 64                                     # deliberately tiny
-    ds, groups = downsample_features_grouped(
-        pb, 0.4, 1024, pose.apply(pb.xyz), 2.0, G)
-    gid = np.asarray(groups.gid)
-    val = np.asarray(ds.mask)
-    assert (val & (gid == G - 1)).any()        # budget actually overflows
-
-    qw = pose.apply(ds.xyz)
-    one = np.asarray(gather_candidates_planar(m, qw, ds.mask))
-    two = np.asarray(
-        gather_candidates_planar_grouped(m, qw, groups.gid, groups.rep_pos))
-    dropped = (two[0] >= EMPTY_COORD * 0.5) & (two[1] >= EMPTY_COORD * 0.5) \
-        & (two[2] >= EMPTY_COORD * 0.5)
-    same = (two == one).all(axis=0)
-    assert np.all(same | dropped)
